@@ -1,0 +1,52 @@
+"""The PyTorch port imports without JAX and refuses a missing CUDA device."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpuvf_torch.runtime.pipeline import Pipeline, resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+
+MODULES = [
+    "tpuvf_torch",
+    "tpuvf_torch.core.element", "tpuvf_torch.core.formats",
+    "tpuvf_torch.core.frame", "tpuvf_torch.core.properties",
+    "tpuvf_torch.core.registry", "tpuvf_torch.core.spec",
+    "tpuvf_torch.kernels._build", "tpuvf_torch.kernels.color",
+    "tpuvf_torch.kernels.convert", "tpuvf_torch.kernels.filter",
+    "tpuvf_torch.kernels.resample", "tpuvf_torch.kernels.sample",
+    "tpuvf_torch.elements", "tpuvf_torch.runtime.pipeline",
+    "tpuvf_torch.runtime.params", "tpuvf_torch.cli.launch",
+]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from tpuvf_torch.core import registry\n"
+        "registry.lookup('vfmetalconvertscale')  # imports every element\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'tpuvf' or m.startswith('tpuvf.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Pipeline(device="cuda")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+    assert resolve_device("cpu") == torch.device("cpu")

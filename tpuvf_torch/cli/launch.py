@@ -1,0 +1,144 @@
+"""gst-launch style pipeline-string parser and runner (port of
+``tpuvf.cli.launch`` for linear chains).
+
+    python -m tpuvf_torch.cli.launch --device cuda \\
+      "videotestsrc num-buffers=5 ! video/x-raw,format=NV12,width=1920,height=1080 \\
+       ! vfmetalconvertscale ! video/x-raw,format=BGRA,width=640,height=480 \\
+       ! vfmetalvideofilter brightness=0.05 contrast=1.1 saturation=1.2 ! fakesink"
+
+Grammar handled: `!` links, caps filter tokens (video/x-raw,...), element
+properties `key=value` and `name=` assignment.  Named-pad references and
+request pads (tee, compositor) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import shlex
+import sys
+from typing import List, Optional
+
+from tpuvf_torch.core import registry
+from tpuvf_torch.core.element import Element
+from tpuvf_torch.core.spec import CapsFilter
+from tpuvf_torch.runtime.pipeline import Pipeline
+
+
+class ParseError(ValueError):
+    pass
+
+
+def tokenize(desc: str) -> List[str]:
+    lex = shlex.shlex(desc, posix=True)
+    lex.whitespace_split = True
+    lex.commenters = ""
+    return list(lex)
+
+
+def _is_caps(tok: str) -> bool:
+    return tok.startswith("video/") or tok.startswith("audio/")
+
+
+def parse_pipeline(desc: str, device="cuda") -> Pipeline:
+    """Parse a linear gst-launch description into a Pipeline on `device`."""
+    pipe = Pipeline(device=device)
+    auto_idx: dict = {}
+    current: Optional[Element] = None  # upstream end of a pending link
+    pending_link = False
+    pending_caps: Optional[CapsFilter] = None
+
+    tokens = tokenize(desc)
+    i = 0
+    while i < len(tokens):
+        tok = tokens[i]
+        i += 1
+        if tok == "!":
+            if current is None:
+                raise ParseError("dangling '!' with no upstream element")
+            pending_link = True
+            continue
+        if _is_caps(tok):
+            if not pending_link:
+                raise ParseError(f"caps {tok!r} must follow '!'")
+            pending_caps = CapsFilter.parse(tok)
+            # expect another '!' before the downstream element
+            if i < len(tokens) and tokens[i] == "!":
+                i += 1
+            continue
+        if "=" in tok and not pending_link and current is not None:
+            key, _, val = tok.partition("=")
+            if key == "name":
+                pipe.rename(current, val)
+            elif "::" in key:
+                raise ParseError(f"pad property {key!r}: request pads are "
+                                 f"not ported yet")
+            else:
+                current.props.set_from_string(key, val)
+            continue
+        if tok.endswith(".") or ("." in tok and "=" not in tok):
+            raise ParseError(f"pad reference {tok!r}: named pads are not "
+                             f"ported yet")
+        # otherwise: element factory name
+        cls = registry.lookup(tok)
+        idx = auto_idx.get(tok, 0)
+        auto_idx[tok] = idx + 1
+        elem = pipe.add(cls(name=f"{tok}{idx}"))
+        if pending_link:
+            pipe.link(current, elem, caps=pending_caps)
+            pending_link = False
+            pending_caps = None
+        current = elem
+    if pending_link:
+        raise ParseError("dangling '!' at the end of the pipeline")
+    return pipe
+
+
+def launch(desc: str, device="cuda", num_frames: Optional[int] = None,
+           quiet: bool = False, verbose: bool = False) -> int:
+    pipe = parse_pipeline(desc, device=device)
+    pipe.negotiate()
+    if verbose:
+        # gst-launch -v analog: print every negotiated link caps
+        for ln in pipe.links:
+            print(f"{ln.upstream.name} -> {ln.downstream.name}: {ln.spec}")
+    pipe.build()
+    n = pipe.run(num_frames=num_frames)
+    if not quiet:
+        print(f"tpuvf_torch-launch: processed {n} frames on {pipe.device}, "
+              f"reached end of stream")
+    return n
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    num_frames = None
+    verbose = False
+    quiet = False
+    device = "cuda"
+    while argv and argv[0].startswith("-"):
+        flag = argv.pop(0)
+        if flag in ("-n", "--num-frames"):
+            num_frames = int(argv.pop(0))
+        elif flag == "--device":
+            device = argv.pop(0)
+        elif flag in ("-v", "--verbose"):
+            verbose = True
+        elif flag in ("-q", "--quiet"):
+            quiet = True
+        else:
+            print(f"unknown flag {flag}", file=sys.stderr)
+            return 2
+    if not argv:
+        print("usage: python -m tpuvf_torch.cli.launch [--device cuda|cpu] "
+              "[-n N] [-v] [-q] PIPELINE", file=sys.stderr)
+        return 2
+    try:
+        launch(" ".join(argv), device=device, num_frames=num_frames,
+               quiet=quiet, verbose=verbose)
+        return 0
+    except Exception as exc:  # mirror gst-launch: error message + nonzero exit
+        print(f"ERROR: {exc}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,131 @@
+"""vfconvertscale — format conversion + scaling (port of
+``tpuvf.elements.convertscale``, canonical path).
+
+- formats BGRA, RGBA, NV12, I420, UYVY, YUY2 (gstvfmetalconvertscale.m:48);
+  packed 4:2:2 frames cannot enter or leave a pipeline yet (core.frame)
+- props: method {bilinear=0, nearest=1}, add-borders (letterbox, default
+  FALSE), border-color ARGB default 0xFF000000 (m:70-72)
+- fixate: preserve input format; fix output dims preserving display aspect
+  ratio given the output PAR (m:160-248)
+- passthrough iff same format and dims (m:272-280)
+
+Per frame: sample the input planes at the output grid through the 2-tap
+resample kernels (letterbox folded into the taps plus a border mask) ->
+quantize to the RGBA8 intermediate -> pack to the output format.  tpuvf's
+split/quad/grid link layouts only move bytes between elements and are not
+ported.
+"""
+
+from __future__ import annotations
+
+from tpuvf_torch.core.element import Element
+from tpuvf_torch.core.formats import ALL_FORMATS
+from tpuvf_torch.core.properties import PropertyDescriptor, argb_to_rgba_floats
+from tpuvf_torch.core.registry import register
+from tpuvf_torch.core.spec import CapsFilter, Fraction, FrameSpec
+from tpuvf_torch.kernels import convert
+from tpuvf_torch.kernels.sample import LINEAR, NEAREST, letterbox_scales
+
+METHOD_BILINEAR = 0
+METHOD_NEAREST = 1
+
+
+@register
+class ConvertScale(Element):
+    ELEMENT_NAME = "vfconvertscale"
+    ALIASES = ("vfmetalconvertscale", "convertscale",
+               "videoconvert", "videoscale")
+    KLASS = "Filter/Converter/Video/Scaler"
+    DESCRIPTION = "Converts video format and scales with 2-tap CUDA kernels"
+    IN_FORMATS = ALL_FORMATS
+    OUT_FORMATS = ALL_FORMATS
+    PROPERTIES = (
+        PropertyDescriptor(
+            "method", "enum", METHOD_BILINEAR,
+            "Scaling interpolation method",
+            enum_values=(("bilinear", 0), ("nearest", 1)),
+        ),
+        PropertyDescriptor(
+            "add-borders", "bool", False,
+            "Add letterbox/pillarbox borders to preserve aspect ratio",
+        ),
+        PropertyDescriptor(
+            "border-color", "color", 0xFF000000,
+            "Border color in ARGB format",
+        ),
+    )
+
+    def transform_spec(self, in_spec: FrameSpec, out_filter=None) -> FrameSpec:
+        """transform_caps offers any format/size (m:105-158); fixate preserves
+        input format and fixes output dims preserving display aspect ratio
+        given the output PAR, nearest against offered ranges/lists
+        (m:160-248)."""
+        if not self.accepts_format(in_spec.format):
+            raise ValueError(f"unsupported input format {in_spec.format}")
+        filt = out_filter or CapsFilter()
+        fmt = filt.fixate("format", in_spec.format) or in_spec.format
+        par = filt.fixate("par", Fraction(1, 1)) or Fraction(1, 1)
+        # input DAR = from_w*par_n / from_h*par_d
+        dar = Fraction(in_spec.width, in_spec.height) * in_spec.par
+
+        def dar_h(w):
+            return max(1, (w * dar.den * par.num) // (dar.num * par.den))
+
+        def dar_w(h):
+            return max(1, (h * dar.num * par.den) // (dar.den * par.num))
+
+        w_fixed, h_fixed = filt.is_fixed("width"), filt.is_fixed("height")
+        if w_fixed and h_fixed:
+            w, h = filt.width, filt.height
+        elif w_fixed:
+            w = filt.width
+            h = filt.fixate("height", dar_h(w)) or dar_h(w)
+        elif h_fixed:
+            h = filt.height
+            w = filt.fixate("width", dar_w(h)) or dar_w(h)
+        else:
+            # neither fixed: keep input width (nearest in the offered
+            # range), DAR-derive the height
+            w = filt.fixate("width", in_spec.width) or in_spec.width
+            h = filt.fixate("height", dar_h(w)) or dar_h(w)
+        fps = filt.fixate("fps", in_spec.fps) or in_spec.fps
+        return FrameSpec(
+            format=fmt, width=w, height=h,
+            fps=fps, par=par,
+            matrix=in_spec.matrix,
+            interlaced=in_spec.interlaced, tff=in_spec.tff,
+        )
+
+    def is_passthrough(self, in_spec, out_spec):
+        # m:272-280 — same format and dimensions => passthrough
+        return (
+            in_spec.format == out_spec.format
+            and in_spec.width == out_spec.width
+            and in_spec.height == out_spec.height
+        )
+
+    def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
+                     device):
+        cfg = dict(static)
+        filt = NEAREST if cfg["method"] == METHOD_NEAREST else LINEAR
+        scale_x = scale_y = 1.0
+        border = None
+        if cfg["add-borders"]:
+            scale_x, scale_y = letterbox_scales(
+                in_spec.width, in_spec.height, out_spec.width, out_spec.height
+            )
+            if scale_x != 1.0 or scale_y != 1.0:
+                border = argb_to_rgba_floats(cfg["border-color"])
+        sampler = convert.plan_rgba_sampler(
+            in_spec, out_spec.width, out_spec.height, device,
+            filter=filt, scale_x=scale_x, scale_y=scale_y,
+            border=border, matrix_index=in_spec.matrix_index,
+        )
+        matrix_out = out_spec.matrix_index
+
+        def process(planes, state, params):
+            # pack_rgba_t applies the RGBA8 render-target quantization
+            return convert.pack_rgba_t(sampler(planes), out_spec.format,
+                                       matrix_out), state
+
+        return process

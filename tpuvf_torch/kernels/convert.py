@@ -1,0 +1,178 @@
+"""Input sampling and output packing of the canonical path (port of
+``tpuvf.kernels.convert``: `plan_plane_sampler`, `plan_rgba_sampler`,
+`pack_rgba`, `pack_rgba_t`, `_pack_yuv_channels`).
+
+`plan_rgba_sampler` is the analog of every element's fragment stage: sample
+the input planes at the output grid's texcoords (Metal sampler semantics) and
+convert to RGBA float.  tpuvf picks among closed forms (2x stencils, integer
+and rational phase forms, letterbox 2x), blockband and dense matmuls and the
+Pallas row kernel, each a re-expression of one 2-tap sampling matrix within
+1 ulp of the others.  The port keeps only that matrix's taps: every
+non-identity axis goes through the 2-tap resample kernels
+(``kernels/resample.py``), rows first, then columns, as in tpuvf
+(``convert.py:753``); identity axes pass through.
+
+`pack_rgba_t` is the analog of VfMetalYUVOutput plus the packed-YUV output
+kernels: quantized RGBA -> output-format planes, 4:2:0 chroma from a 2x2 box
+average and 4:2:2 chroma from a 2-pixel average.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuvf_torch.core.formats import (
+    PACKED_YUV_FORMATS,
+    PLANAR_YUV_FORMATS,
+    RGB_FORMATS,
+    VideoFormat,
+    chroma_dims_420,
+    chroma_dims_422,
+)
+from tpuvf_torch.core.spec import FrameSpec
+from tpuvf_torch.kernels import color, sample
+from tpuvf_torch.kernels.color import dequant, quant
+from tpuvf_torch.kernels.resample import (
+    make_taps,
+    resample_cols,
+    resample_rows,
+)
+from tpuvf_torch.kernels.sample import LINEAR, NEAREST
+
+
+def plan_axis_taps(in_size: int, out_size: int, filter: str, scale: float,
+                   device):
+    """Device tap table for one axis, or None when the axis is identity
+    (same size, no letterbox: identity under both filters)."""
+    if scale == 1.0 and out_size == in_size:
+        return None
+    t = sample.texcoords(out_size, scale)
+    mask = sample.coverage_mask(out_size, scale)
+    return make_taps(sample.plan_taps(t, in_size, filter, mask), in_size,
+                     device)
+
+
+def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
+                       device):
+    """(..., in_h, in_w) float32 -> (..., out_h, out_w): rows, then columns."""
+    taps_y = plan_axis_taps(in_h, out_h, filter, scale_y, device)
+    taps_x = plan_axis_taps(in_w, out_w, filter, scale_x, device)
+
+    def run(img: torch.Tensor) -> torch.Tensor:
+        if taps_y is not None:
+            img = resample_rows(img, taps_y)
+        if taps_x is not None:
+            img = resample_cols(img, taps_x)
+        return img
+
+    return run
+
+
+def plan_rgba_sampler(
+    in_spec: FrameSpec,
+    out_w: int,
+    out_h: int,
+    device,
+    filter: str = LINEAR,
+    scale_x: float = 1.0,
+    scale_y: float = 1.0,
+    border: tuple | None = None,
+    matrix_index: int | None = None,
+):
+    """-> run(planes) returning the (r, g, b, a) tuple of (out_h, out_w)
+    float32 planes in [0,1]; the same semantics as tpuvf's
+    `plan_rgba_sampler(...).tuple`.
+
+    RGB inputs resample the (4, H, W) stack in one launch per axis; 4:2:0
+    inputs resample luma, then U and V stacked, one launch per axis each.
+    `border` (r,g,b,a floats) fills pixels outside the letterbox quad.
+    """
+    if matrix_index is None:
+        matrix_index = in_spec.matrix_index
+    fmt = in_spec.format
+    if fmt in PACKED_YUV_FORMATS:
+        filter = NEAREST  # packed inputs always decode with nearest
+    if fmt in RGB_FORMATS:
+        run_rgba = plan_plane_sampler(
+            in_spec.width, in_spec.height, out_w, out_h, filter,
+            scale_x, scale_y, device)
+    else:
+        if fmt in PLANAR_YUV_FORMATS:
+            cw, ch = chroma_dims_420(in_spec.width, in_spec.height)
+        else:
+            cw, ch = chroma_dims_422(in_spec.width, in_spec.height)
+        run_y = plan_plane_sampler(
+            in_spec.width, in_spec.height, out_w, out_h, filter,
+            scale_x, scale_y, device)
+        run_c = plan_plane_sampler(
+            cw, ch, out_w, out_h, filter, scale_x, scale_y, device)
+
+    mask = None
+    if border is not None:
+        mx = sample.coverage_mask(out_w, scale_x)
+        my = sample.coverage_mask(out_h, scale_y)
+        if not (mx.all() and my.all()):
+            mask = torch.from_numpy(np.logical_and.outer(my, mx)).to(device)
+            bcol = np.asarray(border, np.float32).tolist()
+
+    def run(planes):
+        if fmt in RGB_FORMATS:
+            chans = tuple(run_rgba(dequant(planes["rgba"])).unbind(-3))
+        else:
+            y = run_y(dequant(planes["y"]))
+            uv = run_c(dequant(torch.stack((planes["u"], planes["v"]), -3)))
+            r, g, b = color.yuv_to_rgb(y, uv[..., 0, :, :], uv[..., 1, :, :],
+                                       matrix_index)
+            chans = (r, g, b, torch.ones_like(r))
+        if mask is not None:
+            chans = tuple(torch.where(mask, c, bcol[i])
+                          for i, c in enumerate(chans))
+        return chans
+
+    return run
+
+
+def pack_rgba(rgba_q: torch.Tensor, out_format: VideoFormat,
+              matrix_index: int) -> dict:
+    """Quantized RGBA (..., 4, H, W) uint8 -> output planes dict (uint8).
+
+    Chroma averaging happens on dequantized texel values, exactly like
+    rgbaToNV12/rgbaToI420 (vfmetalshaders.m:90-168) and rgbaToUYVY/rgbaToYUY2
+    (metalconvertscale_shaders.h:202-269).
+    """
+    if out_format in RGB_FORMATS:
+        return {"rgba": rgba_q}
+    rgbaf = dequant(rgba_q)
+    r, g, b = rgbaf[..., 0, :, :], rgbaf[..., 1, :, :], rgbaf[..., 2, :, :]
+    return _pack_yuv_channels(r, g, b, out_format, matrix_index)
+
+
+def pack_rgba_t(chans, out_format: VideoFormat, matrix_index: int) -> dict:
+    """chans = (r, g, b, a) float planes NOT yet quantized: applies the RGBA8
+    render-target quantization per channel, then packs."""
+    rq = tuple(quant(c) for c in chans)
+    if out_format in RGB_FORMATS:
+        return {"rgba": torch.stack(rq, dim=-3)}
+    r, g, b = (dequant(rq[0]), dequant(rq[1]), dequant(rq[2]))
+    return _pack_yuv_channels(r, g, b, out_format, matrix_index)
+
+
+def _pack_yuv_channels(r, g, b, out_format, matrix_index):
+    h, w = r.shape[-2], r.shape[-1]
+    yf, uf, vf = color.rgb_to_yuv(r, g, b, matrix_index)
+    if out_format in PLANAR_YUV_FORMATS:
+        cw, ch = chroma_dims_420(w, h)
+        u, v = color.rgb_to_chroma_downsampled(r, g, b, matrix_index, cw, ch)
+        return {"y": quant(yf), "u": quant(u), "v": quant(v)}
+    if out_format in PACKED_YUV_FORMATS:
+        # one output macro-pixel per 2 source pixels; chroma = mean of both
+        # pixels' U/V after the RGB->YUV matrix (shaders h:202-269)
+        u0, u1 = uf[..., 0::2], uf[..., 1::2]
+        v0, v1 = vf[..., 0::2], vf[..., 1::2]
+        return {
+            "y": quant(yf),
+            "u": quant((u0 + u1) * 0.5),
+            "v": quant((v0 + v1) * 0.5),
+        }
+    raise ValueError(f"unknown output format {out_format}")

@@ -1,0 +1,49 @@
+"""Carry a tpuvf element's parameters and state over to the port.
+
+tpuvf elements hand their per-frame inputs around as numpy: `traced_params()`
+gives float32 scalars plus the element's registered ``__buf/...`` weight
+buffers (sampling matrices, border masks), and `init_state()` gives numpy
+state such as videofilter's uint32 frame counter.  `from_tpuvf` turns those
+into what the port's `process` functions take on a device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_tpuvf(params: dict, state, device):
+    """(tpuvf traced params, tpuvf state) -> (port params, port state).
+
+    - float scalars become 0-dim float32 tensors on `device`;
+    - ``__buf/...`` buffers are dropped: the port plans its taps and masks
+      from the geometry at build time;
+    - integer state (the frame counter) becomes a 0-dim int64 tensor whose
+      value is the uint32 counter, which the port increments modulo 2**32;
+    - empty state (``()``) stays empty.
+    """
+    out_params = {}
+    for key, value in params.items():
+        if key.startswith("__buf/"):
+            continue
+        arr = np.asarray(value)
+        if arr.ndim != 0 or arr.dtype.kind != "f":
+            raise NotImplementedError(
+                f"parameter {key!r} ({arr.dtype}{list(arr.shape)}) has no "
+                f"port counterpart yet")
+        out_params[key] = torch.tensor(float(np.float32(arr)),
+                                       dtype=torch.float32, device=device)
+    if isinstance(state, dict):
+        out_state = {}
+        for key, value in state.items():
+            arr = np.asarray(value)
+            if arr.ndim != 0 or arr.dtype.kind not in "ui":
+                raise NotImplementedError(
+                    f"state {key!r} ({arr.dtype}{list(arr.shape)}) has no "
+                    f"port counterpart yet")
+            out_state[key] = torch.tensor(int(arr) & 0xFFFFFFFF,
+                                          dtype=torch.int64, device=device)
+    else:
+        out_state = state
+    return out_params, out_state
