@@ -1,5 +1,7 @@
 """`runtime.params.from_tpuvf`: a tpuvf element's traced params and state
-carried into the port agree with the port element's own, bitwise."""
+carried into the port agree with the port element's own, bitwise; tpuvf's
+fixed-point LUT tables arrive as float32 corners scaled by f32(1/255) or
+f32(1/65535)."""
 
 import numpy as np
 import pytest
@@ -54,4 +56,46 @@ def test_convertscale_weight_buffers_are_dropped():
 
 def test_unported_params_raise():
     with pytest.raises(NotImplementedError):
-        from_tpuvf({"lut": np.zeros((8, 24), np.uint8)}, (), "cpu")
+        from_tpuvf({"weights": np.zeros((8, 24), np.float32)}, (), "cpu")
+    with pytest.raises(NotImplementedError):
+        from_tpuvf({"lut": np.zeros((8, 24), np.int32)}, (), "cpu")
+
+
+def _write_cube(path, size, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.random((size ** 3, 3), dtype=np.float32)
+    with open(path, "w") as fh:
+        fh.write(f"LUT_3D_SIZE {size}\n")
+        fh.writelines(f"{r:.6f} {g:.6f} {b:.6f}\n" for r, g, b in vals)
+
+
+def test_videofilter_f32_lut_table_carries_unchanged(tmp_path, monkeypatch):
+    """Under TPUVF_LUT_F32=1 tpuvf keeps the float32 corner table; carried
+    over it is the port element's own table, bitwise."""
+    path = str(tmp_path / "grade.cube")
+    _write_cube(path, 5, seed=4)
+    monkeypatch.setenv("TPUVF_LUT_F32", "1")
+    tparams = TVideoFilter(**{"lut-file": path}).traced_params()
+    assert tparams["lut"].dtype == np.float32
+    params, _ = from_tpuvf(tparams, (), "cpu")
+    own = PVideoFilter(**{"lut-file": path}).traced_params("cpu")["lut"]
+    assert params["lut"].dtype == torch.float32
+    assert torch.equal(params["lut"], own)
+    assert np.array_equal(params["lut"].numpy(), tparams["lut"])
+
+
+@pytest.mark.parametrize("dtype,scale", [(np.uint8, 255.0),
+                                         (np.uint16, 65535.0)])
+def test_fixed_point_lut_table_becomes_float32(dtype, scale):
+    """tpuvf's default fixed-point tables: corners * f32(1/scale), each
+    within half a fixed-point step of the float32 table it was made from
+    (<= 1 LSB after the RGBA8 store)."""
+    rng = np.random.default_rng(5)
+    exact = rng.random((27, 24), dtype=np.float32)
+    fixed = np.round(exact * np.float32(scale)).astype(dtype)
+    params, _ = from_tpuvf({"lut": fixed}, (), "cpu")
+    got = params["lut"]
+    assert got.dtype == torch.float32 and tuple(got.shape) == (27, 24)
+    want = fixed.astype(np.float32) * np.float32(1.0 / scale)
+    assert np.array_equal(got.numpy(), want)
+    assert np.abs(got.numpy() - exact).max() <= 0.5 / scale + 1e-7

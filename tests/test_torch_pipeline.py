@@ -87,11 +87,21 @@ def test_passthrough_elements_are_elided():
 
 
 def test_unported_features_raise():
+    """Sharpness builds and runs now; the packed 4:2:2 host repack still
+    raises, naming its ROADMAP item, and the compositor is not registered."""
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=BGRA,width=32,height=24"
-        " ! vfmetalvideofilter sharpness=0.5 ! fakesink", device="cpu")
+        " ! vfmetalvideofilter sharpness=0.5 ! appsink", device="cpu")
+    pipe.build()
+    assert pipe.run() == 1
+    assert pipe["appsink0"].frames[0].shape == (24, 32, 4)
+    pipe = port_parse(
+        "videotestsrc num-buffers=1 ! video/x-raw,format=UYVY,width=32,height=24"
+        " ! vfmetalconvertscale ! video/x-raw,format=BGRA ! fakesink",
+        device="cpu")
+    pipe.build()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.build()
+        pipe.run()
     with pytest.raises(KeyError):
         port_parse("videotestsrc ! vfmetalcompositor ! fakesink", device="cpu")
 

@@ -10,8 +10,9 @@
 - passthrough iff same format and dims (m:272-280)
 
 Per frame: sample the input planes at the output grid through the 2-tap
-resample kernels (letterbox folded into the taps plus a border mask) ->
-quantize to the RGBA8 intermediate -> pack to the output format.  tpuvf's
+resample kernels K1/K1b (letterbox folded into the taps) -> the fused emit
+K2 (RGBA conversion, the letterbox border, quantization to the RGBA8
+intermediate) -> pack to the output format.  tpuvf's
 split/quad/grid link layouts only move bytes between elements and are not
 ported.
 """
@@ -24,6 +25,7 @@ from tpuvf_torch.core.properties import PropertyDescriptor, argb_to_rgba_floats
 from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import CapsFilter, Fraction, FrameSpec
 from tpuvf_torch.kernels import convert
+from tpuvf_torch.kernels.emit import emit
 from tpuvf_torch.kernels.sample import LINEAR, NEAREST, letterbox_scales
 
 METHOD_BILINEAR = 0
@@ -118,14 +120,14 @@ class ConvertScale(Element):
                 border = argb_to_rgba_floats(cfg["border-color"])
         sampler = convert.plan_rgba_sampler(
             in_spec, out_spec.width, out_spec.height, device,
-            filter=filt, scale_x=scale_x, scale_y=scale_y,
-            border=border, matrix_index=in_spec.matrix_index,
-        )
-        matrix_out = out_spec.matrix_index
+            filter=filt, scale_x=scale_x, scale_y=scale_y)
+        border_plan = convert.plan_border(out_spec.width, out_spec.height,
+                                          scale_x, scale_y, border, device)
+        matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):
-            # pack_rgba_t applies the RGBA8 render-target quantization
-            return convert.pack_rgba_t(sampler(planes), out_spec.format,
-                                       matrix_out), state
+            rgba_q = emit(sampler(planes), matrix_in, border=border_plan)
+            return convert.pack_rgba(rgba_q, out_spec.format,
+                                     matrix_out), state
 
         return process

@@ -8,12 +8,19 @@
   (m:114-138)
 - a per-frame monotonically increasing frameIndex drives the grain hash
   (m:183-205); carried as explicit state with uint32 wrap
-- the fused adjustment pass keeps its RGBA8 quantization boundary; `lut-file`
-  and non-zero `sharpness` are not ported yet (ROADMAP.md Queue 1: LUT
-  and sharpness) and raise NotImplementedError when the pipeline is built.
+- `lut-file` loads a .cube or PNG LUT on the property write; a load that
+  fails logs a warning and leaves no LUT, as in tpuvf (m:281-294).  The
+  corner-packed table is float32 always (the reference's RGBA32Float
+  storage) and is uploaded once per load and device
+- the phases of the reference renderer (metalvideofilterrenderer.m:523-695)
+  with their RGBA8 quantization boundaries: sampler -> adjustments (K2) ->
+  3D LUT (K3, quantizing) -> when |sharpness| > 0.001 the separable blur and
+  unsharp mask (plain torch) -> output pack
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -23,9 +30,13 @@ from tpuvf_torch.core.formats import CORE_FORMATS
 from tpuvf_torch.core.properties import PropertyDescriptor
 from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import FrameSpec
+from tpuvf_torch.io import lut as lutio
 from tpuvf_torch.kernels import convert, filter as kfilter
+from tpuvf_torch.kernels.color import dequant, quant
+from tpuvf_torch.kernels.emit import Adjust, emit
+from tpuvf_torch.kernels.lut import lut3d
 
-_NOT_PORTED = "(ROADMAP.md Queue 1: LUT and sharpness)"
+_log = logging.getLogger("tpuvf_torch.videofilter")
 
 
 @register
@@ -70,14 +81,50 @@ class VideoFilter(Element):
                            "Path to 3D LUT (.cube or .png)"),
     )
 
-    # -- passthrough (m:114-138): every prop at default --------------------
+    def __init__(self, *a, **k):
+        self._lut = None  # corner-packed float32 (S^3, 24) numpy table
+        self._lut_size = 0
+        self._lut_path_loaded = None
+        self._lut_on = {}  # torch.device -> the table uploaded there
+        super().__init__(*a, **k)
+
+    # -- LUT lifecycle (load on property write, soft-fail keeps no LUT,
+    #    gstvfmetalvideofilter.m:281-294) --------------------------------
+
+    def set_property(self, name, value):
+        super().set_property(name, value)
+        if name == "lut-file":
+            self._reload_lut()
+
+    def _reload_lut(self):
+        path = self.props.get("lut-file")
+        self._lut, self._lut_size, self._lut_path_loaded = None, 0, None
+        self._lut_on = {}
+        if not path:
+            return
+        try:
+            table = lutio.load(path)
+        except Exception as exc:  # noqa: BLE001 - any unreadable file soft-fails
+            _log.warning("failed to load LUT %s: %s", path, exc)
+            return
+        self._lut = kfilter.pack_lut_corners(table)
+        self._lut_size = table.shape[0]
+        self._lut_path_loaded = path
+
+    def _sync_lut(self):
+        if self.props.get("lut-file") != self._lut_path_loaded:
+            self._reload_lut()
+
+    # -- passthrough (m:114-138): every prop at default AND no LUT loaded --
 
     def is_passthrough(self, in_spec, out_spec):
+        self._sync_lut()
         if in_spec.format != out_spec.format:
             return False
-        return self.props.at_defaults()
+        return self.props.at_defaults() and self._lut is None
 
     def static_config(self, in_spec, out_spec):
+        self._sync_lut()
         g = self.props
         # static effect gates: a disabled effect is omitted (identical output)
         gates = (
@@ -91,13 +138,15 @@ class VideoFilter(Element):
         )
         return (
             ("use_sharpness", abs(g.get("sharpness")) > 0.001),
-            ("lut_file", g.get("lut-file")),
+            ("lut_size", self._lut_size),
             ("gates", gates),
         )
 
     def traced_params(self, device=None):
         """tpuvf's traced scalars (same names, same float32 values) as 0-dim
-        float32 tensors on `device`."""
+        float32 tensors on `device`, plus the LUT table under "lut" when one
+        is loaded."""
+        self._sync_lut()
         ck = self.props.get("chroma-key-color")
         values = {
             "brightness": self.props.get("brightness"),
@@ -120,8 +169,14 @@ class VideoFilter(Element):
             "key_tolerance": self.props.get("chroma-key-tolerance"),
             "key_smoothness": self.props.get("chroma-key-smoothness"),
         }
-        return {k: torch.tensor(float(v), dtype=torch.float32, device=device)
-                for k, v in values.items()}
+        p = {k: torch.tensor(float(v), dtype=torch.float32, device=device)
+             for k, v in values.items()}
+        if self._lut is not None:
+            dev = torch.device("cpu" if device is None else device)
+            if dev not in self._lut_on:
+                self._lut_on[dev] = torch.from_numpy(self._lut).to(dev)
+            p["lut"] = self._lut_on[dev]
+        return p
 
     def init_state(self, in_spec, out_spec, device=None):
         # frame counter for grain animation; reset on stop (m:372-381)
@@ -131,24 +186,31 @@ class VideoFilter(Element):
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
                      device):
         cfg = dict(static)
-        if cfg["lut_file"]:
-            raise NotImplementedError(
-                f"vfvideofilter lut-file is not ported yet {_NOT_PORTED}")
-        if cfg["use_sharpness"]:
-            raise NotImplementedError(
-                f"vfvideofilter sharpness is not ported yet {_NOT_PORTED}")
+        use_sharpness = cfg["use_sharpness"]
+        lut_size = cfg["lut_size"]
         gates = dict(cfg["gates"])
         w, h = in_spec.width, in_spec.height
-        sampler = convert.plan_rgba_sampler(
-            in_spec, w, h, device, matrix_index=in_spec.matrix_index)
+        sampler = convert.plan_rgba_sampler(in_spec, w, h, device)
         coords = kfilter.plan_coords(w, h, device)
-        matrix_out = out_spec.matrix_index
+        matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):
             frame_index = state["frame_index"]
-            chans = kfilter.apply_color_adjustments_t(
-                sampler(planes), params, frame_index, coords, gates=gates)
-            out = convert.pack_rgba_t(chans, out_spec.format, matrix_out)
+            adjust = Adjust(params, frame_index, coords, gates)
+            if lut_size:
+                chans = emit(sampler(planes), matrix_in, adjust=adjust,
+                             out_float=True)
+                rgba_q = lut3d(chans, params["lut"], lut_size, quantize=True)
+            else:
+                rgba_q = emit(sampler(planes), matrix_in, adjust=adjust)
+            if use_sharpness:
+                # RGBA8 boundaries between the blur passes (the reference
+                # renders each pass to an RGBA8 texture)
+                bh = quant(kfilter.blur9(dequant(rgba_q), axis=-1))
+                bv = quant(kfilter.blur9(dequant(bh), axis=-2))
+                rgba_q = quant(kfilter.unsharp_mask(
+                    dequant(rgba_q), dequant(bv), params["sharpness"]))
+            out = convert.pack_rgba(rgba_q, out_spec.format, matrix_out)
             # uint32 wrap, as tpuvf's uint32 counter
             return out, {"frame_index": (frame_index + 1) & 0xFFFFFFFF}
 

@@ -1,9 +1,24 @@
 """Build and load the hand-written CUDA kernels (``tpuvf_torch/csrc``).
 
-The kernels have a plain C interface and are compiled with ``nvcc`` into a
-shared library under ``tpuvf_torch/_build/`` (git-ignored) at first use, then
-loaded with ctypes.  The library is rebuilt when it is missing or older than
-its source.  A failed build raises; nothing falls back to another path.
+Every ``csrc/*.cu`` source has a plain C interface.  `build` compiles each
+source to an object with its own ``nvcc -c`` (all started together, so the
+build takes as long as the slowest source), then links the objects with one
+``nvcc -shared`` into a single library under ``tpuvf_torch/_build/``
+(git-ignored), which `load` opens with ctypes.  The library is rebuilt when
+it is missing or older than any source.  A failed build raises; nothing
+falls back to another path.
+
+The kernels in the library, each with its wrapper:
+
+- K1 ``resample_rows_f32`` and K1b ``resample_cols_f32`` (``resample.cu``,
+  wrappers in ``kernels/resample.py``): the separable 2-tap sampler;
+- K2 ``emit_u8`` / ``emit_f32`` (``emit.cu``, ``kernels/emit.py``): the
+  fused emit, yuv->rgb -> letterbox border -> colour adjustments -> quantize;
+- K3 ``lut3d_trilinear_f32`` (``lut.cu``, ``kernels/lut.py``): the
+  trilinear 3D-LUT lookup with its quantizing epilogue.
+
+`SIGNATURES` gives each exported function's ctypes argument types; a source
+that exports a function must list it there.
 
 Nothing here runs at import: the CPU tests import every module, and a CPU
 machine has no ``nvcc``.
@@ -20,14 +35,37 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "resample.cu"
+SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-LIBRARY = BUILD_DIR / "libtpuvf_resample.so"
+LIBRARY = BUILD_DIR / "libtpuvf_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_EMIT_ARGS = (
+    # src, u, v, is_rgba, out, out_f32, height, width, matrix_index
+    [_P, _P, _P, _I, _P, _I, _I, _I, _I]
+    # border rows, border cols, border colour r, g, b, a
+    + [_P, _P, _F, _F, _F, _F]
+    # params, frame_index, tx, ty, px, py, gates (-1: no adjustments), stream
+    + [_P, _P, _P, _P, _P, _P, _I, _P])
+SIGNATURES = {
+    # in, out, i0, i1, w0, w1, planes, size_in, size_a, size_b, stream
+    "resample_rows_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "resample_cols_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "emit_u8": _EMIT_ARGS,
+    "emit_f32": _EMIT_ARGS,
+    # in, table, size, pixels, out, quantize, stream
+    "lut3d_trilinear_f32": [_P, _P, _I, _I, _P, _I, _P],
+}
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, if any
+
+
+def sources() -> list:
+    """Every CUDA source of the package, sorted by name."""
+    return sorted(SOURCE_DIR.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -45,31 +83,44 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once; raise on the first that failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile SOURCE into LIBRARY (atomically replaced)."""
+    """Compile every source and link LIBRARY (atomically replaced)."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib_tmp = Path(tmp) / LIBRARY.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
+                   *map(str, objs)]])
+        os.replace(lib_tmp, LIBRARY)
     build_seconds = time.perf_counter() - t0
     return LIBRARY
 
 
 def _stale() -> bool:
-    return (not LIBRARY.exists()
-            or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime)
+    if not LIBRARY.exists():
+        return True
+    built = LIBRARY.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources())
 
 
 def load() -> ctypes.CDLL:
@@ -80,10 +131,9 @@ def load() -> ctypes.CDLL:
     if _stale():
         build()
     lib = ctypes.CDLL(str(LIBRARY))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.resample_rows_f32, lib.resample_cols_f32):
-        # in, out, i0, i1, w0, w1, planes, size_in, size_a, size_b, stream
-        fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-        fn.restype = i32
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib

@@ -60,6 +60,12 @@ def dequant(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) * _INV255
 
 
+def as_float(x: torch.Tensor) -> torch.Tensor:
+    """`dequant` of uint8 planes; float32 planes (already sampled) as they
+    are."""
+    return dequant(x) if x.dtype == torch.uint8 else x
+
+
 def quant(x: torch.Tensor) -> torch.Tensor:
     """float -> uint8 (Metal Unorm8 store: round(clamp(v,0,1)*255)).
     ``torch.round`` rounds half to even, like ``jnp.round``; the clamp keeps

@@ -1,10 +1,12 @@
 """Input sampling and output packing of the canonical path (port of
 ``tpuvf.kernels.convert``: `plan_plane_sampler`, `plan_rgba_sampler`,
-`pack_rgba`, `pack_rgba_t`, `_pack_yuv_channels`).
+`pack_rgba`, `_pack_yuv_channels`).
 
-`plan_rgba_sampler` is the analog of every element's fragment stage: sample
-the input planes at the output grid's texcoords (Metal sampler semantics) and
-convert to RGBA float.  tpuvf picks among closed forms (2x stencils, integer
+`plan_rgba_sampler` is the first half of every element's fragment stage:
+sample the input planes at the output grid's texcoords (Metal sampler
+semantics).  The second half, RGBA conversion and quantization, is the fused
+emit (K2, ``kernels/emit.py``), with `plan_border` giving it the letterbox
+border.  tpuvf picks among closed forms (2x stencils, integer
 and rational phase forms, letterbox 2x), blockband and dense matmuls and the
 Pallas row kernel, each a re-expression of one 2-tap sampling matrix within
 1 ulp of the others.  The port keeps only that matrix's taps: every
@@ -12,9 +14,10 @@ non-identity axis goes through the 2-tap resample kernels
 (``kernels/resample.py``), rows first, then columns, as in tpuvf
 (``convert.py:753``); identity axes pass through.
 
-`pack_rgba_t` is the analog of VfMetalYUVOutput plus the packed-YUV output
+`pack_rgba` is the analog of VfMetalYUVOutput plus the packed-YUV output
 kernels: quantized RGBA -> output-format planes, 4:2:0 chroma from a 2x2 box
-average and 4:2:2 chroma from a 2-pixel average.
+average and 4:2:2 chroma from a 2-pixel average.  It is tpuvf's
+`pack_rgba_t` on the emit's quantized channels, bitwise.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from tpuvf_torch.core.formats import (
 )
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.kernels import color, sample
-from tpuvf_torch.kernels.color import dequant, quant
+from tpuvf_torch.kernels.color import as_float, dequant, quant
+from tpuvf_torch.kernels.emit import Border
 from tpuvf_torch.kernels.resample import (
     make_taps,
     resample_cols,
@@ -55,11 +59,16 @@ def plan_axis_taps(in_size: int, out_size: int, filter: str, scale: float,
 
 def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
                        device):
-    """(..., in_h, in_w) float32 -> (..., out_h, out_w): rows, then columns."""
+    """uint8 (..., in_h, in_w) -> (..., out_h, out_w): dequantized and
+    resampled (rows, then columns) to float32, or the uint8 planes as they
+    are when both axes are identity (the emit dequantizes them)."""
     taps_y = plan_axis_taps(in_h, out_h, filter, scale_y, device)
     taps_x = plan_axis_taps(in_w, out_w, filter, scale_x, device)
 
     def run(img: torch.Tensor) -> torch.Tensor:
+        if taps_y is None and taps_x is None:
+            return img
+        img = dequant(img)
         if taps_y is not None:
             img = resample_rows(img, taps_y)
         if taps_x is not None:
@@ -77,19 +86,14 @@ def plan_rgba_sampler(
     filter: str = LINEAR,
     scale_x: float = 1.0,
     scale_y: float = 1.0,
-    border: tuple | None = None,
-    matrix_index: int | None = None,
 ):
-    """-> run(planes) returning the (r, g, b, a) tuple of (out_h, out_w)
-    float32 planes in [0,1]; the same semantics as tpuvf's
-    `plan_rgba_sampler(...).tuple`.
+    """-> run(planes) returning the emit's source planes at the output grid
+    (``emit.emit``): {"rgba": (4, out_h, out_w)}, or {"y", "u", "v"} with
+    float32 U and V; RGBA and luma stay uint8 where the sampler is identity.
 
     RGB inputs resample the (4, H, W) stack in one launch per axis; 4:2:0
     inputs resample luma, then U and V stacked, one launch per axis each.
-    `border` (r,g,b,a floats) fills pixels outside the letterbox quad.
     """
-    if matrix_index is None:
-        matrix_index = in_spec.matrix_index
     fmt = in_spec.format
     if fmt in PACKED_YUV_FORMATS:
         filter = NEAREST  # packed inputs always decode with nearest
@@ -108,29 +112,30 @@ def plan_rgba_sampler(
         run_c = plan_plane_sampler(
             cw, ch, out_w, out_h, filter, scale_x, scale_y, device)
 
-    mask = None
-    if border is not None:
-        mx = sample.coverage_mask(out_w, scale_x)
-        my = sample.coverage_mask(out_h, scale_y)
-        if not (mx.all() and my.all()):
-            mask = torch.from_numpy(np.logical_and.outer(my, mx)).to(device)
-            bcol = np.asarray(border, np.float32).tolist()
-
     def run(planes):
         if fmt in RGB_FORMATS:
-            chans = tuple(run_rgba(dequant(planes["rgba"])).unbind(-3))
-        else:
-            y = run_y(dequant(planes["y"]))
-            uv = run_c(dequant(torch.stack((planes["u"], planes["v"]), -3)))
-            r, g, b = color.yuv_to_rgb(y, uv[..., 0, :, :], uv[..., 1, :, :],
-                                       matrix_index)
-            chans = (r, g, b, torch.ones_like(r))
-        if mask is not None:
-            chans = tuple(torch.where(mask, c, bcol[i])
-                          for i, c in enumerate(chans))
-        return chans
+            return {"rgba": run_rgba(planes["rgba"])}
+        uv = as_float(run_c(torch.stack((planes["u"], planes["v"]), -3)))
+        return {"y": run_y(planes["y"]), "u": uv[..., 0, :, :],
+                "v": uv[..., 1, :, :]}
 
     return run
+
+
+def plan_border(out_w: int, out_h: int, scale_x: float, scale_y: float,
+                color_rgba, device) -> Border | None:
+    """The letterbox border of an output grid (`color_rgba`: r, g, b, a
+    floats), or None when there is no border or the quad covers the
+    grid."""
+    if color_rgba is None:
+        return None
+    mx = sample.coverage_mask(out_w, scale_x)
+    my = sample.coverage_mask(out_h, scale_y)
+    if mx.all() and my.all():
+        return None
+    return Border(torch.from_numpy(my).to(device),
+                  torch.from_numpy(mx).to(device),
+                  tuple(np.asarray(color_rgba, np.float32).tolist()))
 
 
 def pack_rgba(rgba_q: torch.Tensor, out_format: VideoFormat,
@@ -145,16 +150,6 @@ def pack_rgba(rgba_q: torch.Tensor, out_format: VideoFormat,
         return {"rgba": rgba_q}
     rgbaf = dequant(rgba_q)
     r, g, b = rgbaf[..., 0, :, :], rgbaf[..., 1, :, :], rgbaf[..., 2, :, :]
-    return _pack_yuv_channels(r, g, b, out_format, matrix_index)
-
-
-def pack_rgba_t(chans, out_format: VideoFormat, matrix_index: int) -> dict:
-    """chans = (r, g, b, a) float planes NOT yet quantized: applies the RGBA8
-    render-target quantization per channel, then packs."""
-    rq = tuple(quant(c) for c in chans)
-    if out_format in RGB_FORMATS:
-        return {"rgba": torch.stack(rq, dim=-3)}
-    r, g, b = (dequant(rq[0]), dequant(rq[1]), dequant(rq[2]))
     return _pack_yuv_channels(r, g, b, out_format, matrix_index)
 
 

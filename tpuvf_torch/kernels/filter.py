@@ -1,12 +1,15 @@
-"""Videofilter math: the fused color-adjustment chain (port of
-``tpuvf.kernels.filter.apply_color_adjustments_t`` and its helpers).
+"""Videofilter math: the fused color-adjustment chain, the 3D-LUT lookup and
+the sharpness blur (port of ``tpuvf.kernels.filter``: the canonical
+functions, none of its TPU layout variants).
 
 A translation of applyColorAdjustments in the reference
 (src/videofilter/metalvideofilter_shaders.h:88-155): brightness -> contrast ->
 saturation (folded into one affine, as in tpuvf) -> hue (HSV rotate, gated
 |hue|>0.001) -> gamma -> sepia -> invert -> chroma key -> vignette -> film
-grain -> clamp.  Plain PyTorch ops on float32 tensors; on the card each op is
-one elementwise launch (the fused emit kernel is later work).
+grain -> clamp.  Plain PyTorch ops on float32 tensors: the CPU path, and the
+plain versions that the card's kernels are held against (the chain runs on
+the card inside K2, ``kernels/emit.py``; the LUT lookup inside K3,
+``kernels/lut.py``).
 
 Traced parameters arrive as 0-dim float32 tensors, so per-frame scalar
 arithmetic (the b/c/s fold coefficients) rounds in float32 exactly as tpuvf's
@@ -15,14 +18,20 @@ knife-edge pixels.  Divisions by constants use float32 tensors or values
 precomputed in numpy: PyTorch on CUDA divides by a Python scalar as a
 multiply by its reciprocal, which rounds differently.
 
-The 3D LUT and blur/unsharp stages are not ported yet (ROADMAP.md Queue 1:
-LUT and sharpness).
+The blur/unsharp stage stays plain torch on every device (its hand kernel is
+queued in ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+BLUR_WEIGHTS = np.array(
+    [0.028532, 0.067234, 0.124009, 0.179044, 0.20236,
+     0.179044, 0.124009, 0.067234, 0.028532],
+    np.float32,
+)
 
 REC709_LUMA = np.array([0.2126, 0.7152, 0.0722], np.float32)
 SEPIA = np.array(
@@ -221,3 +230,83 @@ def apply_color_adjustments_t(chans, p, frame_index, coords, gates=None):
         return (r, g, b, alpha)
     return (torch.clamp(r, 0.0, 1.0), torch.clamp(g, 0.0, 1.0),
             torch.clamp(b, 0.0, 1.0), alpha)
+
+
+def pack_lut_corners(lut: np.ndarray) -> np.ndarray:
+    """(S, S, S, 3) [b][g][r] table -> corner-packed float32 (S^3, 24).
+
+    Cell (b, g, r) stores its 8 trilinear corners (the +1 neighbours
+    clamped at the edges) contiguously, corner k at (b+db, g+dg, r+dr) with
+    db, dg, dr = (k>>2)&1, (k>>1)&1, k&1, so the lookup reads one table row
+    per pixel.  Always float32: the reference's RGBA32Float storage.
+    """
+    size = lut.shape[0]
+    i0 = np.arange(size)
+    i1 = np.minimum(i0 + 1, size - 1)
+    packed = np.empty((size, size, size, 8, 3), np.float32)
+    for k in range(8):
+        db, dg, dr = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        bb = i1 if db else i0
+        gg = i1 if dg else i0
+        rr = i1 if dr else i0
+        packed[..., k, :] = lut[bb[:, None, None], gg[None, :, None],
+                                rr[None, None, :]]
+    return packed.reshape(size ** 3, 24)
+
+
+def apply_lut_t_plain(chans, table: torch.Tensor, size: int):
+    """3D LUT lookup with trilinear filtering (h:188-194): (r, g, b, a)
+    float32 planes -> same, alpha passed through.
+
+    table: the float32 (S^3, 24) `pack_lut_corners` table on the planes'
+    device.  The texel-space coordinate is rgb*(S-1); one index_select of
+    the table rows, then tpuvf's arithmetic in tpuvf's order.
+    """
+    r, g, b, alpha = chans
+    s1 = float(size - 1)
+
+    def axis(x):
+        p = x * s1
+        fl = torch.floor(p)
+        f = p - fl
+        return torch.clamp(fl, 0, size - 1).to(torch.int32), [1.0 - f, f]
+
+    r0, w_fr = axis(r)
+    g0, w_fg = axis(g)
+    b0, w_fb = axis(b)
+    cell = (b0 * size + g0) * size + r0
+    corners = table.index_select(0, cell.reshape(-1))
+    acc = [None, None, None]
+    for k in range(8):
+        db, dg, dr = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        wk = (w_fb[db] * w_fg[dg]) * w_fr[dr]
+        for c in range(3):
+            t = wk * corners[:, 3 * k + c].reshape(r.shape)
+            acc[c] = t if acc[c] is None else acc[c] + t
+    return (acc[0], acc[1], acc[2], alpha)
+
+
+def blur9(img: torch.Tensor, axis: int) -> torch.Tensor:
+    """9-tap Gaussian along one axis with edge clamping (blurHorizontal /
+    blurVertical, h:265-299), `BLUR_WEIGHTS` in order: tap i of output n
+    reads clip(n - 4 + i, 0, N - 1)."""
+    axis = axis % img.ndim
+    n = img.shape[axis]
+    out = None
+    for i, w in enumerate(BLUR_WEIGHTS.tolist()):
+        idx = torch.clamp(torch.arange(n, device=img.device) + (i - 4),
+                          0, n - 1)
+        tap = img.index_select(axis, idx) * w
+        out = tap if out is None else out + tap
+    return out
+
+
+def unsharp_mask(original: torch.Tensor, blurred: torch.Tensor,
+                 amount: torch.Tensor) -> torch.Tensor:
+    """unsharpMask (h:302-328) on (..., 4, H, W): amount > 0 sharpens,
+    amount < 0 mixes toward the blur; alpha always from the original.
+    amount: 0-dim float32 tensor."""
+    sharpened = torch.clamp(original + (original - blurred) * amount, 0.0, 1.0)
+    mixed = original + (blurred - original) * torch.abs(amount)
+    out = torch.where(amount > 0, sharpened, mixed)
+    return torch.cat([out[..., :3, :, :], original[..., 3:4, :, :]], dim=-3)

@@ -2,8 +2,9 @@
 
 tpuvf elements hand their per-frame inputs around as numpy: `traced_params()`
 gives float32 scalars plus the element's registered ``__buf/...`` weight
-buffers (sampling matrices, border masks), and `init_state()` gives numpy
-state such as videofilter's uint32 frame counter.  `from_tpuvf` turns those
+buffers (sampling matrices, border masks) and videofilter's corner-packed
+3D-LUT table ``"lut"``, and `init_state()` gives numpy state such as
+videofilter's uint32 frame counter.  `from_tpuvf` turns those
 into what the port's `process` functions take on a device.
 """
 
@@ -13,12 +14,35 @@ import numpy as np
 import torch
 
 
+_LUT_SCALES = {np.dtype(np.uint8): np.float32(1.0 / 255.0),
+               np.dtype(np.uint16): np.float32(1.0 / 65535.0)}
+
+
+def _lut_table(arr: np.ndarray) -> torch.Tensor:
+    if arr.ndim != 2 or arr.shape[1] != 24:
+        raise ValueError(f"lut: expected the corner-packed (S^3, 24) table, "
+                         f"got {list(arr.shape)}")
+    if arr.dtype == np.float32:
+        return torch.from_numpy(np.ascontiguousarray(arr))
+    if arr.dtype not in _LUT_SCALES:
+        raise NotImplementedError(f"lut table of type {arr.dtype}")
+    scaled = arr.astype(np.float32) * _LUT_SCALES[arr.dtype]
+    return torch.from_numpy(np.ascontiguousarray(scaled, np.float32))
+
+
 def from_tpuvf(params: dict, state, device):
     """(tpuvf traced params, tpuvf state) -> (port params, port state).
 
     - float scalars become 0-dim float32 tensors on `device`;
     - ``__buf/...`` buffers are dropped: the port plans its taps and masks
       from the geometry at build time;
+    - ``"lut"``, the (S^3, 24) corner table, becomes a float32 tensor on
+      `device`: a float32 table unchanged; tpuvf's fixed-point uint8 or
+      uint16 tables (its default storage) as corners * f32(1/255) or
+      f32(1/65535).  tpuvf scales the fixed-point sum once after the
+      trilinear blend, the port each corner before it, so a lookup through
+      a carried fixed-point table may differ from tpuvf's by 1 LSB after
+      quantization;
     - integer state (the frame counter) becomes a 0-dim int64 tensor whose
       value is the uint32 counter, which the port increments modulo 2**32;
     - empty state (``()``) stays empty.
@@ -28,6 +52,9 @@ def from_tpuvf(params: dict, state, device):
         if key.startswith("__buf/"):
             continue
         arr = np.asarray(value)
+        if key == "lut":
+            out_params[key] = _lut_table(arr).to(device)
+            continue
         if arr.ndim != 0 or arr.dtype.kind != "f":
             raise NotImplementedError(
                 f"parameter {key!r} ({arr.dtype}{list(arr.shape)}) has no "
