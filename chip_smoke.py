@@ -19,6 +19,11 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    K3 (lut3d_trilinear_f32) against apply_lut_t_plain at 1080p with seeded
    non-identity 17^3, 33^3 and 64^3 tables, bitwise on the float32 output
    and on the quantizing epilogue;
+   K4 (composite_fold, vfcompositor's blend fold) against
+   composite_fold_plain, bitwise: BASELINE config 5's shape (a 4K canvas,
+   four u8/f32 draws, OVER, OVER at alpha 0.7, ADD), a checker background
+   with negative positions and SOURCE, and more draws than one launch
+   holds; its device time is also read from torch.profiler;
 4. the main paths through tpuvf_torch.cli.launch.parse_pipeline on "cuda",
    8 frames each: (a) appsrc NV12 1920x1080 -> vfmetalconvertscale -> BGRA
    640x480 -> vfmetalvideofilter b/c/s -> appsink; (b) the same at
@@ -26,14 +31,20 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    vfmetalvideofilter b/c/s + chroma key + a seeded non-identity 33^3 .cube
    -> appsink NV12, and the same to BGRA through vfmetalconvertscale;
    (d) appsrc RGBA 1920x1080 -> vfmetalvideofilter 17^3 grade + contrast +
-   sharpness -> BGRA.  The kernels' launch counters are set to 0 just before
-   each run and read just after; each kernel of the path must have grown.
+   sharpness -> BGRA; (e) BASELINE config 5 without its PNG overlay: four
+   appsrcs (BGRA 4K, NV12 1080p, BGRA 720p at alpha 0.7, NV12 720p ADD)
+   -> vfmetalcompositor -> BGRA 3840x2160; (f) a checker composite to NV12
+   1920x1080 of a scaled NV12 1080p pad at a negative position and a
+   keep-aspect BGRA pad.  The kernels' launch counters are set to 0 just
+   before each run and read just after; each kernel of the path must have
+   grown.
    Frame 0 must be within 1 LSB of the same pipeline on the CPU;
    device-resident us/frame of the built step and wall fps of Pipeline.run
    (upload and readback included) are printed;
-5. two small chains on the card against the repo's numpy oracle of the Metal
-   semantics (tests/oracle), within its 2-LSB tolerance: b/c/s, and
-   b/c/s + chroma key + a 9^3 LUT.
+5. three small pipelines on the card against the repo's numpy oracle of the
+   Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
+   b/c/s + chroma key + a 9^3 LUT, and a BGRA + NV12 (alpha 0.6) composite
+   over the checker background.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Matmul TF32 is switched off (the sampler
@@ -55,6 +66,23 @@ FRAMES = 8
 BCS = "vfmetalvideofilter brightness=0.05 contrast=1.1 saturation=1.2"
 CONFIG3 = ("vfmetalvideofilter brightness=0.1 contrast=1.2 saturation=1.3 "
            "chroma-key-enabled=true")
+# BASELINE config 5 (bench/configs.py:186-257) without its PNG overlay
+CONFIG5 = ("vfmetalcompositor name=c background=black sink_1::xpos=1920 "
+           "sink_2::ypos=1080 sink_2::alpha=0.7 sink_3::xpos=1920 "
+           "sink_3::ypos=1080 sink_3::operator=add "
+           "! video/x-raw,format=BGRA,width=3840,height=2160 ! appsink "
+           "appsrc name=s0 format=BGRA width=3840 height=2160 ! c.sink_0 "
+           "appsrc name=s1 format=NV12 width=1920 height=1080 ! c.sink_1 "
+           "appsrc name=s2 format=BGRA width=1280 height=720 ! c.sink_2 "
+           "appsrc name=s3 format=NV12 width=1280 height=720 ! c.sink_3")
+CHAIN_F = ("vfmetalcompositor name=c background=checker sink_0::width=1280 "
+           "sink_0::height=720 sink_0::xpos=-100 sink_0::ypos=40 "
+           "sink_1::xpos=1000 sink_1::ypos=400 sink_1::width=800 "
+           "sink_1::height=600 sink_1::sizing-policy=keep-aspect-ratio "
+           "sink_1::alpha=0.8 "
+           "! video/x-raw,format=NV12,width=1920,height=1080 ! appsink "
+           "appsrc name=s0 format=NV12 width=1920 height=1080 ! c.sink_0 "
+           "appsrc name=s1 format=BGRA width=1280 height=720 ! c.sink_1")
 
 
 def fail(msg: str) -> None:
@@ -83,10 +111,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def counters():
     """{kernel label: its wrapper}; each wrapper counts its launches."""
-    from tpuvf_torch.kernels import emit, lut, resample
+    from tpuvf_torch.kernels import composite, emit, lut, resample
 
     return {"K1": resample.resample_rows, "K1b": resample.resample_cols,
-            "K2": emit.emit, "K3": lut.lut3d}
+            "K2": emit.emit, "K3": lut.lut3d, "K4": composite.composite_fold}
 
 
 def phase_card():
@@ -338,6 +366,98 @@ def phase_lut(summary):
                    plain_ms)
 
 
+def profiled_us(fn, reps: int = 20) -> float:
+    """Device time per call of fn() in us: the CUDA kernels' summed self
+    time in torch.profiler over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    if total <= 0:
+        fail("torch.profiler saw no device time")
+    return total / reps
+
+
+def composite_cases(gen):
+    """(label, height, width, Background, [Draw]) for K4, on the card."""
+    import numpy as np
+    import torch
+
+    from tpuvf_torch.kernels.composite import (OP_ADD, OP_OVER, OP_SOURCE,
+                                               Background, Draw,
+                                               background_colors)
+
+    def draw(h, w, pw, ph, x, y, op, alpha, f32):
+        if f32:  # an emit's float32 RGBA: colour in [0, 1], alpha 1
+            src = torch.rand((4, ph, pw), generator=gen, device="cuda")
+            src[3] = 1.0
+        else:
+            src = torch.randint(0, 256, (4, ph, pw), generator=gen,
+                                device="cuda", dtype=torch.uint8)
+        rect = (min(max(x, 0), w), min(max(y, 0), h),
+                min(max(x + pw, 0), w), min(max(y + ph, 0), h))
+        return Draw(src, x, y, rect, op, float(np.float32(alpha)))
+
+    black = Background(background_colors(((0, 0, 0, 1),) * 2), True)
+    checker = Background(background_colors(((0.5, 0.5, 0.5, 1),
+                                            (0.75, 0.75, 0.75, 1))), True)
+    return [
+        ("config 5 shape: 4K canvas, 4K u8 + 1080p f32 OVER, 720p u8 OVER "
+         "0.7, 720p f32 ADD", 2160, 3840, black,
+         [draw(2160, 3840, 3840, 2160, 0, 0, OP_OVER, 1.0, False),
+          draw(2160, 3840, 1920, 1080, 1920, 0, OP_OVER, 1.0, True),
+          draw(2160, 3840, 1280, 720, 0, 1080, OP_OVER, 0.7, False),
+          draw(2160, 3840, 1280, 720, 1920, 1080, OP_ADD, 1.0, True)]),
+        ("1080p checker, negative positions, SOURCE, odd sizes at odd x",
+         1080, 1920, checker,
+         [draw(1080, 1920, 1280, 720, -100, -51, OP_SOURCE, 0.6, True),
+          draw(1080, 1920, 1917, 1077, 5, 3, OP_OVER, 0.45, False),
+          draw(1080, 1920, 37, 23, 1901, 1071, OP_SOURCE, 1.0, False),
+          draw(1080, 1920, 641, 359, -333, 777, OP_ADD, 0.8, True)]),
+        ("1080p checker, 11 draws (two launches)", 1080, 1920, checker,
+         [draw(1080, 1920, 400 + 97 * i, 240 + 61 * i, 150 * i - 201,
+               80 * i - 33, i % 3, 0.15 + 0.08 * i, bool(i % 2))
+          for i in range(11)]),
+    ]
+
+
+def phase_composite(summary):
+    """K4 against composite_fold_plain; the JSON times are the config-5
+    shape's (chain (e))."""
+    import torch
+
+    from tpuvf_torch.kernels import composite
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i, (label, h, w, bg, draws) in enumerate(composite_cases(gen)):
+        args = (h, w, bg, draws, "cuda")
+        got = composite.composite_fold(*args)
+        want = composite.composite_fold_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"K4 {label}: kernel != composite_fold_plain (max |diff| "
+                 f"{err})")
+        ms = cuda_ms(lambda: composite.composite_fold(*args))
+        plain_ms = cuda_ms(lambda: composite.composite_fold_plain(*args))
+        device = ""
+        if i == 0:
+            dev_us = profiled_us(lambda: composite.composite_fold(*args))
+            plain_dev_us = profiled_us(
+                lambda: composite.composite_fold_plain(*args))
+            device = (f" | device (profiler) kernel {dev_us:.1f} us, plain "
+                      f"{plain_dev_us:.1f} us")
+        print(f"[3 K4] {label}: torch.equal OK | kernel {ms * 1e3:.1f} us, "
+              f"plain {plain_ms * 1e3:.1f} us{device}", flush=True)
+        record(summary, "K4", err, ms if i == 0 else None, plain_ms)
+
+
 def nv12_frames(n, w, h, seed):
     import numpy as np
 
@@ -354,14 +474,15 @@ def rgba_frames(n, w, h, seed):
     return [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for _ in range(n)]
 
 
-def fed_pipeline(desc, frames, device):
+def fed_pipeline(desc, feeds, device):
+    """The pipeline on `device` with {appsrc name: frames} pushed."""
     from tpuvf_torch.cli.launch import parse_pipeline
 
     pipe = parse_pipeline(desc, device=device)
-    src = pipe["appsrc0"]
-    for f in frames:
-        src.push(f)
-    src.end_of_stream()
+    for name, frames in feeds.items():
+        for f in frames:
+            pipe[name].push(f)
+        pipe[name].end_of_stream()
     pipe.negotiate()
     pipe.build()
     return pipe
@@ -371,13 +492,15 @@ def _planes(frame):
     return frame if isinstance(frame, dict) else {"frame": frame}
 
 
-def phase_chain(label, desc, frames, expect, opaque=False):
-    """Drive one main path on the card; -> {kernel: launches}."""
+def phase_chain(label, desc, feeds, expect, opaque=False):
+    """Drive one main path on the card, fed {appsrc name: frames};
+    -> {kernel: launches}."""
     import numpy as np
     import torch
 
+    frames = max(feeds.values(), key=len)
     wrappers = counters()
-    pipe = fed_pipeline(desc, frames, "cuda")
+    pipe = fed_pipeline(desc, feeds, "cuda")
     for w in wrappers.values():
         w.launches = 0
     n = pipe.run()
@@ -398,7 +521,7 @@ def phase_chain(label, desc, frames, expect, opaque=False):
             fail(f"{label}: frame {i} alpha is not opaque")
     if all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0]):
         fail(f"{label}: distinct input frames gave equal outputs")
-    cpu = fed_pipeline(desc, frames[:1], "cpu")
+    cpu = fed_pipeline(desc, {k: v[:1] for k, v in feeds.items()}, "cpu")
     cpu.run()
     ref = _planes(cpu["appsink0"].frames[0])
     worst, differ, total = 0, 0, 0
@@ -411,9 +534,9 @@ def phase_chain(label, desc, frames, expect, opaque=False):
     if worst > 1:
         fail(f"{label}: frame 0 differs from the CPU run by {worst} LSB")
 
-    planes = pipe.upload(frames[0])
+    inputs = pipe.upload_sources({k: v[0] for k, v in feeds.items()})
     params, state = pipe.params(), pipe.state
-    step_ms = cuda_ms(lambda: pipe.step(planes, state, params))
+    step_ms = cuda_ms(lambda: pipe.step_sources(inputs, state, params))
     pipe.frames, pipe.wall_seconds = 0, 0.0
     pipe.run()  # warm: planned and allocated by the first run
     fps = pipe.frames / pipe.wall_seconds
@@ -433,29 +556,42 @@ def phase_chains(tmp):
         ("(a) NV12 1920x1080 -> BGRA 640x480 + b/c/s",
          f"appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale ! "
          f"video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! appsink",
-         nv12_frames(FRAMES, 1920, 1080, seed=1920), ("K1", "K1b", "K2"),
-         True),
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=1920)},
+         ("K1", "K1b", "K2"), True),
         ("(b) NV12 3840x2160 -> BGRA 3840x2160 + b/c/s",
          f"appsrc format=NV12 width=3840 height=2160 ! vfmetalconvertscale ! "
          f"video/x-raw,format=BGRA,width=3840,height=2160 ! {BCS} ! appsink",
-         nv12_frames(FRAMES, 3840, 2160, seed=3840), ("K1", "K1b", "K2"),
-         True),
+         {"appsrc0": nv12_frames(FRAMES, 3840, 2160, seed=3840)},
+         ("K1", "K1b", "K2"), True),
         ("(c) config 3: NV12 1920x1080 b/c/s + chroma key + 33^3 LUT -> NV12",
          f"appsrc format=NV12 width=1920 height=1080 ! {CONFIG3} "
          f"lut-file={lut33} ! appsink",
-         nv12_frames(FRAMES, 1920, 1080, seed=3), ("K1", "K1b", "K2", "K3"),
-         False),
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=3)},
+         ("K1", "K1b", "K2", "K3"), False),
         ("(c) config 3 -> BGRA",
          f"appsrc format=NV12 width=1920 height=1080 ! {CONFIG3} "
          f"lut-file={lut33} ! vfmetalconvertscale ! video/x-raw,format=BGRA "
          f"! appsink",
-         nv12_frames(FRAMES, 1920, 1080, seed=4), ("K1", "K1b", "K2", "K3"),
-         False),
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=4)},
+         ("K1", "K1b", "K2", "K3"), False),
         ("(d) RGBA 1920x1080 17^3 LUT + contrast + sharpness -> BGRA",
          f"appsrc format=RGBA width=1920 height=1080 ! vfmetalvideofilter "
          f"lut-file={lut17} contrast=1.1 sharpness=0.5 ! vfmetalconvertscale "
          f"! video/x-raw,format=BGRA ! appsink",
-         rgba_frames(FRAMES, 1920, 1080, seed=17), ("K2", "K3"), False),
+         {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=17)}, ("K2", "K3"),
+         False),
+        ("(e) config 5 without the overlay: BGRA 4K + NV12 1080p + BGRA 720p "
+         "alpha 0.7 + NV12 720p ADD -> BGRA 4K", CONFIG5,
+         {"s0": rgba_frames(FRAMES, 3840, 2160, seed=50),
+          "s1": nv12_frames(FRAMES, 1920, 1080, seed=51),
+          "s2": rgba_frames(FRAMES, 1280, 720, seed=52),
+          "s3": nv12_frames(FRAMES, 1280, 720, seed=53)},
+         ("K1", "K1b", "K2", "K4"), False),
+        ("(f) checker composite -> NV12 1080p: NV12 1080p scaled to 1280x720 "
+         "at xpos -100 + BGRA 720p keep-aspect", CHAIN_F,
+         {"s0": nv12_frames(FRAMES, 1920, 1080, seed=60),
+          "s1": rgba_frames(FRAMES, 1280, 720, seed=61)},
+         ("K1", "K1b", "K2", "K4"), False),
     ]
     total = {}
     for label, desc, frames, expect, opaque in chains:
@@ -468,6 +604,7 @@ def phase_oracle(tmp):
     """Small chains on the card against tests/oracle (numpy Metal
     semantics; tolerance 2 LSB as in the repo's golden tests)."""
     import importlib.util
+    import types
 
     import numpy as np
 
@@ -475,14 +612,35 @@ def phase_oracle(tmp):
     from tpuvf_torch.core.spec import FrameSpec
     from tpuvf_torch.core.formats import VideoFormat
 
-    def oracle(name):  # by path: another installed "tests" may shadow it
+    def oracle(name, metal_ref=None):
+        """tests/oracle/<name>, loaded by path: another installed "tests"
+        may shadow it.  element_ref imports metal_ref from the package, so
+        that import is given the one loaded here."""
         path = Path(__file__).resolve().parent / "tests" / "oracle" / name
         spec_ = importlib.util.spec_from_file_location(path.stem, path)
         mod = importlib.util.module_from_spec(spec_)
-        spec_.loader.exec_module(mod)
+        shim = {}
+        if metal_ref is not None:
+            pkg = types.ModuleType("tests.oracle")
+            pkg.__path__, pkg.metal_ref = [], metal_ref
+            root = types.ModuleType("tests")
+            root.__path__, root.oracle = [], pkg
+            shim = {"tests": root, "tests.oracle": pkg,
+                    "tests.oracle.metal_ref": metal_ref}
+        saved = {k: sys.modules.get(k) for k in shim}
+        sys.modules.update(shim)
+        try:
+            spec_.loader.exec_module(mod)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    sys.modules.pop(k, None)
+                else:
+                    sys.modules[k] = v
         return mod
 
     metal_ref, filter_ref = oracle("metal_ref.py"), oracle("filter_ref.py")
+    element_ref = oracle("element_ref.py", metal_ref)
     w, h, ow, oh = 64, 36, 32, 24
     frames = nv12_frames(1, w, h, seed=7)
     spec = FrameSpec(VideoFormat.NV12, w, h)
@@ -509,7 +667,7 @@ def phase_oracle(tmp):
     desc = (f"appsrc format=NV12 width={w} height={h} ! vfmetalconvertscale "
             f"! video/x-raw,format=RGBA,width={ow},height={oh} ! {BCS} "
             f"! appsink")
-    pipe = fed_pipeline(desc, frames, "cuda")
+    pipe = fed_pipeline(desc, {"appsrc0": frames}, "cuda")
     pipe.run()
     mid = metal_ref.quant(metal_ref.sample_rgba(
         planes, "NV12", spec.matrix_index, ow, oh))
@@ -522,7 +680,7 @@ def phase_oracle(tmp):
     lut9 = write_cube(Path(tmp) / "grade9.cube", table)
     desc = (f"appsrc format=NV12 width={w} height={h} ! {CONFIG3} "
             f"lut-file={lut9} ! appsink")
-    pipe = fed_pipeline(desc, frames, "cuda")
+    pipe = fed_pipeline(desc, {"appsrc0": frames}, "cuda")
     pipe.run()
     got = pipe["appsink0"].frames[0]
     uk = dict(u, brightness=0.1, contrast=1.2, saturation=1.3,
@@ -537,6 +695,32 @@ def phase_oracle(tmp):
     compare(f"NV12 {w}x{h} b/c/s + chroma key + 9^3 LUT -> NV12",
             got_planes, want)
 
+    # tests/test_compositor.py's golden two-input OVER on the card
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 256, (24, 32, 4), dtype=np.uint8)
+    top = nv12_frames(1, 24, 16, seed=9)[0]
+    desc = ("vfmetalcompositor name=c background=checker sink_1::xpos=16 "
+            "sink_1::ypos=8 sink_1::alpha=0.6 ! video/x-raw,format=BGRA "
+            "! appsink appsrc name=s0 format=BGRA width=32 height=24 "
+            "! c.sink_0 appsrc name=s1 format=NV12 width=24 height=16 "
+            "! c.sink_1")
+    pipe = fed_pipeline(desc, {"s0": [base], "s1": [top]}, "cuda")
+    pipe.run()
+    out_spec = FrameSpec(VideoFormat.BGRA, 40, 24)
+    dst = metal_ref.dequant(metal_ref.quant(element_ref.checker_bg(40, 24)))
+    for planes, fmt, x, y, pw, ph, alpha in (
+            (host_to_planes(base, FrameSpec(VideoFormat.BGRA, 32, 24)),
+             "BGRA", 0, 0, 32, 24, 1.0),
+            (host_to_planes(top, FrameSpec(VideoFormat.NV12, 24, 16)),
+             "NV12", 16, 8, 24, 16, 0.6)):
+        dst = element_ref.composite_draw(dst, planes, fmt, 0, x, y, pw, ph,
+                                         alpha, 1)
+    want = metal_ref.pack_rgba(metal_ref.quant(dst).transpose(2, 0, 1),
+                               "BGRA", 0)
+    compare("BGRA 32x24 + NV12 24x16 at (16, 8) alpha 0.6 over checker -> "
+            "BGRA 40x24", host_to_planes(pipe["appsink0"].frames[0],
+                                         out_spec), want)
+
 
 KERNELS = (
     # (label, JSON name, source, the TPU kernel it replaces)
@@ -548,6 +732,8 @@ KERNELS = (
      "scripts/probe_mosaic_emit.py:46"),
     ("K3", "lut3d_trilinear_f32 (K3)", "tpuvf_torch/csrc/lut.cu",
      "scripts/bench_gather.py:111"),
+    ("K4", "composite_fold (K4)", "tpuvf_torch/csrc/composite.cu",
+     "scripts/bench_comp_pallas.py:163"),
 )
 
 
@@ -567,6 +753,7 @@ def main() -> int:
     phase_resample(summary)
     phase_emit(summary)
     phase_lut(summary)
+    phase_composite(summary)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_chains(tmp)
         phase_oracle(tmp)

@@ -17,9 +17,11 @@ MODULES = [
     "tpuvf_torch.core.frame", "tpuvf_torch.core.properties",
     "tpuvf_torch.core.registry", "tpuvf_torch.core.spec",
     "tpuvf_torch.kernels._build", "tpuvf_torch.kernels.color",
-    "tpuvf_torch.kernels.convert", "tpuvf_torch.kernels.filter",
-    "tpuvf_torch.kernels.resample", "tpuvf_torch.kernels.sample",
-    "tpuvf_torch.elements", "tpuvf_torch.runtime.pipeline",
+    "tpuvf_torch.kernels.composite", "tpuvf_torch.kernels.convert",
+    "tpuvf_torch.kernels.emit", "tpuvf_torch.kernels.filter",
+    "tpuvf_torch.kernels.lut", "tpuvf_torch.kernels.resample",
+    "tpuvf_torch.kernels.sample", "tpuvf_torch.elements",
+    "tpuvf_torch.elements.compositor", "tpuvf_torch.runtime.pipeline",
     "tpuvf_torch.runtime.params", "tpuvf_torch.cli.launch",
 ]
 
@@ -30,7 +32,7 @@ def test_port_imports_without_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from tpuvf_torch.core import registry\n"
-        "registry.lookup('vfmetalconvertscale')  # imports every element\n"
+        "registry.lookup('vfmetalcompositor')  # imports every element\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpuvf' or m.startswith('tpuvf.'))\n"
         "assert not bad, bad\n"

@@ -9,10 +9,12 @@ import torch
 
 from tpuvf.core.formats import VideoFormat as TFormat
 from tpuvf.core.spec import FrameSpec as TSpec
+from tpuvf.core.registry import make as t_make
 from tpuvf.elements.convertscale import ConvertScale as TConvertScale
 from tpuvf.elements.videofilter import VideoFilter as TVideoFilter
 from tpuvf_torch.core.formats import VideoFormat as PFormat
 from tpuvf_torch.core.spec import FrameSpec as PSpec
+from tpuvf_torch.elements.compositor import Compositor as PCompositor
 from tpuvf_torch.elements.convertscale import ConvertScale as PConvertScale
 from tpuvf_torch.elements.videofilter import VideoFilter as PVideoFilter
 from tpuvf_torch.runtime.params import from_tpuvf
@@ -54,7 +56,38 @@ def test_convertscale_weight_buffers_are_dropped():
     assert PConvertScale(**{"add-borders": True}).traced_params("cpu") == {}
 
 
+PAD_PROPS = {"sink_0": {"xpos": -17, "ypos": 40, "alpha": 0.7,
+                        "operator": 2, "zorder": 3},
+             "sink_1": {"xpos": 1920, "alpha": 1.0 / 3.0, "operator": 0}}
+
+
+def test_compositor_pad_params_carry_as_host_numbers():
+    """tpuvf's int32/float32 pad params arrive as the Python ints and
+    float32-valued floats the port's compositor gives itself; the planned
+    background buffer (``__buf/bg``) is dropped."""
+    tcomp, pcomp = t_make("vfcompositor"), PCompositor(name="c")
+    specs = {}
+    for name, props in PAD_PROPS.items():
+        for k, v in props.items():
+            tcomp.get_pad(name).set(k, v)
+            pcomp.get_pad(name).set(k, v)
+        specs[name] = TSpec(TFormat.BGRA, 64, 32)
+    tcomp.make_aggregate(specs, tcomp.aggregate_spec(specs, None))
+    tparams = tcomp.traced_params()
+    assert any(k.startswith("__buf/") for k in tparams)
+    params, state = from_tpuvf(tparams, tcomp.init_state(None, None), "cpu")
+    own = pcomp.traced_params("cpu")
+    assert params == own and state == ()
+    for key, value in own.items():
+        assert type(value) is type(params[key]), key
+        assert type(value) is (float if key.endswith(".alpha") else int)
+    assert params["pad.sink_1.alpha"] == float(np.float32(1.0 / 3.0))
+    assert params["pad.sink_0.xpos"] == -17
+
+
 def test_unported_params_raise():
+    with pytest.raises(NotImplementedError, match="vfoverlay"):
+        from_tpuvf({"fold.vfoverlay0.alpha": np.float32(0.5)}, (), "cpu")
     with pytest.raises(NotImplementedError):
         from_tpuvf({"weights": np.zeros((8, 24), np.float32)}, (), "cpu")
     with pytest.raises(NotImplementedError):

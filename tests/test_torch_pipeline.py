@@ -88,7 +88,7 @@ def test_passthrough_elements_are_elided():
 
 def test_unported_features_raise():
     """Sharpness builds and runs now; the packed 4:2:2 host repack still
-    raises, naming its ROADMAP item, and the compositor is not registered."""
+    raises, naming its ROADMAP item, and tee is not registered."""
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=BGRA,width=32,height=24"
         " ! vfmetalvideofilter sharpness=0.5 ! appsink", device="cpu")
@@ -103,7 +103,7 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.run()
     with pytest.raises(KeyError):
-        port_parse("videotestsrc ! vfmetalcompositor ! fakesink", device="cpu")
+        port_parse("videotestsrc ! tee ! fakesink", device="cpu")
 
 
 def test_cli_default_cuda_device_fails_without_cuda(capsys):

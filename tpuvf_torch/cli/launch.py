@@ -1,21 +1,25 @@
 """gst-launch style pipeline-string parser and runner (port of
-``tpuvf.cli.launch`` for linear chains).
+``tpuvf.cli.launch``).
 
     python -m tpuvf_torch.cli.launch --device cuda \\
       "videotestsrc num-buffers=5 ! video/x-raw,format=NV12,width=1920,height=1080 \\
        ! vfmetalconvertscale ! video/x-raw,format=BGRA,width=640,height=480 \\
        ! vfmetalvideofilter brightness=0.05 contrast=1.1 saturation=1.2 ! fakesink"
 
+    vfmetalcompositor name=comp sink_1::xpos=160 ... ! fakesink
+    videotestsrc ! comp.sink_0  videotestsrc ! comp.sink_1
+
 Grammar handled: `!` links, caps filter tokens (video/x-raw,...), element
-properties `key=value` and `name=` assignment.  Named-pad references and
-request pads (tee, compositor) are not ported yet.
+properties `key=value`, `name=` assignment, pad properties `pad::key=value`,
+named-pad references `name.pad` / `name.` both as link targets (sink pads)
+and chain heads (src pads), in either order in the string.
 """
 
 from __future__ import annotations
 
 import shlex
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from tpuvf_torch.core import registry
 from tpuvf_torch.core.element import Element
@@ -38,13 +42,28 @@ def _is_caps(tok: str) -> bool:
     return tok.startswith("video/") or tok.startswith("audio/")
 
 
+def _is_pad_ref(tok: str) -> bool:
+    if "=" in tok or _is_caps(tok):
+        return False
+    if tok.endswith("."):
+        return True
+    if "." in tok:
+        head, _, tail = tok.partition(".")
+        return head.isidentifier() and ("::" not in tail)
+    return False
+
+
 def parse_pipeline(desc: str, device="cuda") -> Pipeline:
-    """Parse a linear gst-launch description into a Pipeline on `device`."""
+    """Parse a gst-launch description into a Pipeline on `device`."""
     pipe = Pipeline(device=device)
     auto_idx: dict = {}
     current: Optional[Element] = None  # upstream end of a pending link
     pending_link = False
     pending_caps: Optional[CapsFilter] = None
+    # pad-ref links resolved after all elements exist:
+    # (other element, caps, target name, target pad, direction)
+    deferred: List[Tuple] = []
+    pending_src_ref: Optional[Tuple[str, str]] = None  # (name, pad) chain head
 
     tokens = tokenize(desc)
     i = 0
@@ -52,7 +71,7 @@ def parse_pipeline(desc: str, device="cuda") -> Pipeline:
         tok = tokens[i]
         i += 1
         if tok == "!":
-            if current is None:
+            if current is None and pending_src_ref is None:
                 raise ParseError("dangling '!' with no upstream element")
             pending_link = True
             continue
@@ -64,31 +83,61 @@ def parse_pipeline(desc: str, device="cuda") -> Pipeline:
             if i < len(tokens) and tokens[i] == "!":
                 i += 1
             continue
+        if _is_pad_ref(tok):
+            name, _, pad = tok.partition(".")
+            if pending_link:
+                # chain tail: upstream ! name.pad (the named element may be
+                # declared later in the string)
+                if current is None:
+                    raise ParseError(
+                        "linking two pad references directly is unsupported")
+                deferred.append((current, pending_caps, name, pad or None,
+                                 "to"))
+                pending_link = False
+                pending_caps = None
+            else:
+                # chain head: name. ! downstream
+                pending_src_ref = (name, pad or None)
+            current = None
+            continue
         if "=" in tok and not pending_link and current is not None:
             key, _, val = tok.partition("=")
             if key == "name":
                 pipe.rename(current, val)
             elif "::" in key:
-                raise ParseError(f"pad property {key!r}: request pads are "
-                                 f"not ported yet")
+                pad_name, _, prop = key.partition("::")
+                if not hasattr(current, "get_pad"):
+                    raise ParseError(f"{current.name} does not have request "
+                                     f"pads")
+                current.get_pad(pad_name).set_from_string(prop, val)
             else:
                 current.props.set_from_string(key, val)
             continue
-        if tok.endswith(".") or ("." in tok and "=" not in tok):
-            raise ParseError(f"pad reference {tok!r}: named pads are not "
-                             f"ported yet")
         # otherwise: element factory name
         cls = registry.lookup(tok)
         idx = auto_idx.get(tok, 0)
         auto_idx[tok] = idx + 1
         elem = pipe.add(cls(name=f"{tok}{idx}"))
-        if pending_link:
+        if pending_src_ref is not None:
+            deferred.append((elem, pending_caps, *pending_src_ref, "from"))
+            pending_src_ref = None
+        elif pending_link:
             pipe.link(current, elem, caps=pending_caps)
-            pending_link = False
-            pending_caps = None
+        pending_link = False
+        pending_caps = None
         current = elem
     if pending_link:
         raise ParseError("dangling '!' at the end of the pipeline")
+    for other, caps, name, pad, direction in deferred:
+        try:
+            target = pipe[name]
+        except KeyError:
+            raise ParseError(f"unknown element {name!r} in pad reference") \
+                from None
+        if direction == "to":
+            pipe.link(other, target, caps=caps, sink_pad=pad)
+        else:  # "from": target's src pad feeds `other`
+            pipe.link(target, other, caps=caps)
     return pipe
 
 
@@ -99,7 +148,9 @@ def launch(desc: str, device="cuda", num_frames: Optional[int] = None,
     if verbose:
         # gst-launch -v analog: print every negotiated link caps
         for ln in pipe.links:
-            print(f"{ln.upstream.name} -> {ln.downstream.name}: {ln.spec}")
+            pad = f".{ln.sink_pad}" if ln.sink_pad else ""
+            print(f"{ln.upstream.name} -> {ln.downstream.name}{pad}: "
+                  f"{ln.spec}")
     pipe.build()
     n = pipe.run(num_frames=num_frames)
     if not quiet:

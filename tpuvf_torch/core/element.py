@@ -136,6 +136,26 @@ class SourceElement(Element):
         n = self.props.get("num-buffers") if self.props.has("num-buffers") else -1
         return None if n is None or int(n) < 0 else int(n)
 
+    # -- per-buffer timing/metadata (the GstBuffer pts + flags analog) -----
+
+    def timestamp_offset(self) -> float:
+        """Stream start time in seconds (timestamp-offset property, ns)."""
+        if self.props.has("timestamp-offset"):
+            return float(self.props.get("timestamp-offset")) / 1e9
+        return 0.0
+
+    def buffer_pts(self, frame_index: int, spec: FrameSpec) -> float:
+        """Presentation timestamp of buffer `frame_index` in seconds.
+        Default: offset + index/fps.  Must be monotonic in frame_index."""
+        fps = float(spec.fps) or 25.0
+        return self.timestamp_offset() + frame_index / fps
+
+    def buffer_meta(self, frame_index: int, spec: FrameSpec) -> Dict:
+        """Per-buffer flags (the GST_VIDEO_BUFFER_FLAG_* analog).  Keys:
+        'tff' (field order of THIS buffer).  Sources with real per-buffer
+        flags (appsrc) override."""
+        return {"tff": bool(spec.tff)}
+
 
 class SinkElement(Element):
     """Consumes frames host-side."""

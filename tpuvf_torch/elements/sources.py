@@ -28,13 +28,33 @@ class AppSrc(SourceElement):
     def __init__(self, *a, **k):
         super().__init__(*a, **k)
         self._queue: list = []
+        self._meta: list = []
         self._eos = False
 
-    def push(self, host_frame) -> None:
+    def push(self, host_frame, pts: float | None = None,
+             tff: bool | None = None) -> None:
+        """Queue a frame; optional per-buffer pts (seconds) and TFF flag
+        (the GstBuffer pts / GST_VIDEO_BUFFER_FLAG_TFF analog)."""
         self._queue.append(host_frame)
+        self._meta.append({"pts": pts, "tff": tff})
 
     def end_of_stream(self) -> None:
         self._eos = True
+
+    def buffer_pts(self, frame_index: int, spec: FrameSpec) -> float:
+        if frame_index < len(self._meta):
+            pts = self._meta[frame_index].get("pts")
+            if pts is not None:
+                return float(pts)
+        return super().buffer_pts(frame_index, spec)
+
+    def buffer_meta(self, frame_index: int, spec: FrameSpec):
+        meta = super().buffer_meta(frame_index, spec)
+        if frame_index < len(self._meta):
+            tff = self._meta[frame_index].get("tff")
+            if tff is not None:
+                meta["tff"] = bool(tff)
+        return meta
 
     def output_spec(self, out_filter: CapsFilter | None) -> FrameSpec:
         spec = FrameSpec(

@@ -15,7 +15,9 @@ The kernels in the library, each with its wrapper:
 - K2 ``emit_u8`` / ``emit_f32`` (``emit.cu``, ``kernels/emit.py``): the
   fused emit, yuv->rgb -> letterbox border -> colour adjustments -> quantize;
 - K3 ``lut3d_trilinear_f32`` (``lut.cu``, ``kernels/lut.py``): the
-  trilinear 3D-LUT lookup with its quantizing epilogue.
+  trilinear 3D-LUT lookup with its quantizing epilogue;
+- K4 ``composite_fold`` (``composite.cu``, ``kernels/composite.py``):
+  vfcompositor's per-pixel blend fold of the pad draws over the background.
 
 `SIGNATURES` gives each exported function's ctypes argument types; a source
 that exports a function must list it there.
@@ -57,6 +59,8 @@ SIGNATURES = {
     "emit_f32": _EMIT_ARGS,
     # in, table, size, pixels, out, quantize, stream
     "lut3d_trilinear_f32": [_P, _P, _I, _I, _P, _I, _P],
+    # params (host FoldParams), out, stream
+    "composite_fold": [_P, _P, _P],
 }
 
 _lib = None

@@ -2,8 +2,9 @@
 
 tpuvf elements hand their per-frame inputs around as numpy: `traced_params()`
 gives float32 scalars plus the element's registered ``__buf/...`` weight
-buffers (sampling matrices, border masks) and videofilter's corner-packed
-3D-LUT table ``"lut"``, and `init_state()` gives numpy state such as
+buffers (sampling matrices, border masks, the compositor's background),
+videofilter's corner-packed 3D-LUT table ``"lut"`` and the compositor's
+per-pad int32/float32 geometry, and `init_state()` gives numpy state such as
 videofilter's uint32 frame counter.  `from_tpuvf` turns those
 into what the port's `process` functions take on a device.
 """
@@ -43,6 +44,13 @@ def from_tpuvf(params: dict, state, device):
       trilinear blend, the port each corner before it, so a lookup through
       a carried fixed-point table may differ from tpuvf's by 1 LSB after
       quantization;
+    - the compositor's pad parameters become host numbers, as its own
+      `traced_params` gives them: ``pad.<name>.xpos``, ``ypos`` and
+      ``operator`` (int32) Python ints, ``pad.<name>.alpha`` a Python float
+      holding its float32 value.  Its ``__buf/bg`` background canvas is
+      dropped with the other buffers (the port plans the background);
+      ``fold.*`` keys, a folded vfoverlay's parameters, raise
+      NotImplementedError until vfoverlay is ported;
     - integer state (the frame counter) becomes a 0-dim int64 tensor whose
       value is the uint32 counter, which the port increments modulo 2**32;
     - empty state (``()``) stays empty.
@@ -52,6 +60,17 @@ def from_tpuvf(params: dict, state, device):
         if key.startswith("__buf/"):
             continue
         arr = np.asarray(value)
+        if key.startswith("fold."):
+            raise NotImplementedError(
+                f"parameter {key!r}: the vfoverlay fold is not ported yet "
+                f"(ROADMAP Queue 1 item 13)")
+        if key.startswith("pad.") and arr.ndim == 0:
+            if key.endswith(".alpha"):
+                out_params[key] = float(np.float32(arr))
+                continue
+            if arr.dtype.kind in "ui":
+                out_params[key] = int(arr)
+                continue
         if key == "lut":
             out_params[key] = _lut_table(arr).to(device)
             continue

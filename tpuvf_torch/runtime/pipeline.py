@@ -1,25 +1,37 @@
-"""Pipeline graph: negotiation, build, frame loop (port of the linear-chain
-part of ``tpuvf.runtime.pipeline``).
+"""Pipeline graph: negotiation, build, frame loop (port of
+``tpuvf.runtime.pipeline`` without its TPU link-layout plans).
 
-- **Negotiation** happens once: FrameSpecs propagate from the source through
-  each element's `transform_spec` rule, constrained by per-link caps filters.
+- **Negotiation** happens once: FrameSpecs propagate in topological order
+  from the sources through each element's `transform_spec` rule,
+  constrained by per-link caps filters.  An aggregator (vfcompositor) names
+  its unnamed request pads ``sink_%u`` in link order and negotiates its
+  output from every pad's spec.
 - **Build** plans every non-passthrough element for one ``torch.device``:
   tap tables, masks and coordinate fields move to the device once, and each
-  element contributes a ``process(planes, state, params)`` function.
+  element contributes a ``process(planes, state, params)`` function (an
+  aggregator a ``process(pad_inputs, state, params)``).
 - **Passthrough elision**: elements reporting `is_passthrough` are dropped
-  from the chain.
-- **Run**: per frame, the source's host frame is repacked to canonical
-  planes and uploaded, the chain runs eagerly on the device, and the sink
-  gets the frame back in its host byte layout.
+  from the graph's step.
+- **Step**: the built stages run over the DAG eagerly on the device.
+  Per-source buffer metadata (``"__meta__"`` in a source's input dict)
+  travels with the frame and reaches an aggregator as
+  ``params["__pad_meta__"][pad]``.
+- **Run**: an output clock at the tail's frame rate picks, for each output
+  frame, every source's latest buffer whose pts is due (repeating or
+  dropping as the rates differ; the GstVideoAggregator model).  Each picked
+  host frame is repacked to canonical planes and uploaded once, and reused
+  while it stays picked; the sink gets every output frame back in its host
+  byte layout.
 
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
-available; nothing falls back to the CPU.  Linear chains only (one source,
-one optional sink); tee, compositor, batched and live runs, controllers and
-tpuvf's link-layout plans are not ported.
+available; nothing falls back to the CPU.  One sink at most; tee and
+multi-sink, batched and live runs, controllers, navigation, overlay folds
+and tpuvf's split/quad/grid link layouts are not ported.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -29,6 +41,8 @@ import torch
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
 from tpuvf_torch.core.frame import host_to_planes, planes_to_host, to_device, to_host
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
+
+META = "__meta__"
 
 
 def resolve_device(device) -> torch.device:
@@ -59,16 +73,27 @@ class Link:
     upstream: Element
     downstream: Element
     caps: Optional[CapsFilter] = None
+    sink_pad: Optional[str] = None  # for aggregator request pads
     spec: Optional[FrameSpec] = None  # filled by negotiate()
 
 
 @dataclass
 class Stage:
     element: Element
-    in_spec: FrameSpec
+    in_spec: Optional[FrameSpec]  # None for an aggregator
     out_spec: FrameSpec
     passthrough: bool
     process: Optional[callable] = None
+
+
+def _strip_meta(planes: Dict) -> Dict:
+    return {k: v for k, v in planes.items() if k != META}
+
+
+def _is_aggregator(element) -> bool:
+    from tpuvf_torch.elements.compositor import Compositor  # circular-safe
+
+    return isinstance(element, Compositor)
 
 
 class Pipeline:
@@ -93,8 +118,8 @@ class Pipeline:
         self._by_name[element.name] = element
         return element
 
-    def link(self, upstream, downstream, caps=None) -> Link:
-        ln = Link(upstream, downstream, caps)
+    def link(self, upstream, downstream, caps=None, sink_pad=None) -> Link:
+        ln = Link(upstream, downstream, caps, sink_pad)
         self.links.append(ln)
         return ln
 
@@ -124,44 +149,70 @@ class Pipeline:
     def sinks(self) -> List[SinkElement]:
         return [e for e in self.elements if isinstance(e, SinkElement)]
 
-    def _chain(self) -> List[Element]:
-        """Elements from the source to the tail, in link order."""
-        order = [self.sources[0]]
-        while self._outgoing(order[-1]):
-            order.append(self._outgoing(order[-1])[0].downstream)
+    def _topo_order(self) -> List[Element]:
+        indeg = {id(e): len(self._incoming(e)) for e in self.elements}
+        ready = [e for e in self.elements if indeg[id(e)] == 0]
+        order = []
+        while ready:
+            e = ready.pop(0)
+            order.append(e)
+            for ln in self._outgoing(e):
+                indeg[id(ln.downstream)] -= 1
+                if indeg[id(ln.downstream)] == 0:
+                    ready.append(ln.downstream)
+        if len(order) != len(self.elements):
+            raise ValueError("pipeline graph has a cycle or dangling link")
         return order
 
     # -- negotiation -------------------------------------------------------
 
     def negotiate(self) -> None:
-        if len(self.sources) != 1:
-            raise ValueError(f"a linear pipeline needs exactly one source, "
-                             f"got {len(self.sources)}")
+        if not self.sources:
+            raise ValueError("pipeline has no source")
+        if len(self.sinks) > 1:
+            raise ValueError(f"{len(self.sinks)} sinks: multi-sink pipelines "
+                             f"(tee) are not ported")
         for e in self.elements:
             ins, outs = self._incoming(e), self._outgoing(e)
-            if len(outs) > 1:
-                raise ValueError(f"{e.name} has {len(outs)} downstream links; "
-                                 f"only linear chains are supported")
             if isinstance(e, SourceElement):
                 if ins:
                     raise ValueError(f"source {e.name} has inputs")
+                if len(outs) > 1:
+                    raise ValueError(
+                        f"source {e.name} has {len(outs)} downstream links; "
+                        f"a src pad links once (tee is not ported)")
             elif isinstance(e, SinkElement):
                 if len(ins) != 1 or outs:
                     raise ValueError(f"sink {e.name} needs exactly 1 input "
                                      f"and no outputs")
+            elif _is_aggregator(e):
+                if not ins or len(outs) != 1:
+                    raise ValueError(f"{e.name} needs at least one input and "
+                                     f"exactly one output")
             elif len(ins) != 1 or len(outs) != 1:
                 raise ValueError(f"element {e.name} must have exactly one "
                                  f"input and one output")
-        chain = self._chain()
-        if len(chain) != len(self.elements):
-            raise ValueError("pipeline graph has a cycle or dangling element")
-        for e in chain:
+        for e in self._topo_order():
             outs = self._outgoing(e)
             if isinstance(e, SourceElement):
                 spec = e.output_spec(outs[0].caps if outs else None)
             elif isinstance(e, SinkElement):
                 e.prepare(self._incoming(e)[0].spec)
                 continue
+            elif _is_aggregator(e):
+                # unnamed request pads take sink_%u names in link order
+                ins = self._incoming(e)
+                used = {ln.sink_pad for ln in ins if ln.sink_pad}
+                next_idx = 0
+                for ln in ins:
+                    if ln.sink_pad is None:
+                        while f"sink_{next_idx}" in used:
+                            next_idx += 1
+                        ln.sink_pad = f"sink_{next_idx}"
+                        used.add(ln.sink_pad)
+                    e.get_pad(ln.sink_pad)  # ensure the pad bag exists
+                spec = e.aggregate_spec({ln.sink_pad: ln.spec for ln in ins},
+                                        outs[0].caps)
             else:
                 spec = e.transform_spec(self._incoming(e)[0].spec,
                                         outs[0].caps)
@@ -186,11 +237,18 @@ class Pipeline:
             self.negotiate()
         stages: List[Stage] = []
         state: Dict[str, object] = {}
-        for e in self._chain():
+        for e in self._topo_order():
             if isinstance(e, (SourceElement, SinkElement)):
                 continue
-            in_spec = self._incoming(e)[0].spec
             out_spec = self._outgoing(e)[0].spec
+            if _is_aggregator(e):
+                pad_specs = {ln.sink_pad: ln.spec for ln in sorted(
+                    self._incoming(e), key=lambda ln: ln.sink_pad)}
+                process = e.make_aggregate(pad_specs, out_spec, self.device)
+                stages.append(Stage(e, None, out_spec, False, process))
+                state[e.name] = e.init_state(None, out_spec, self.device)
+                continue
+            in_spec = self._incoming(e)[0].spec
             if e.is_passthrough(in_spec, out_spec):
                 stages.append(Stage(e, in_spec, out_spec, True))
                 continue
@@ -206,53 +264,188 @@ class Pipeline:
     # -- execution ---------------------------------------------------------
 
     def params(self) -> Dict[str, Dict]:
-        """Traced per-frame params of every active element, on the device."""
+        """Per-frame params of every active element (traced scalars as
+        0-dim tensors on the device; the compositor's pad geometry as host
+        numbers)."""
         return {st.element.name: st.element.traced_params(self.device)
                 for st in self.stages if not st.passthrough}
 
+    def _source_spec(self, source: SourceElement) -> FrameSpec:
+        return self._outgoing(source)[0].spec
+
     def upload(self, host_frame) -> Dict[str, torch.Tensor]:
-        """Source host frame -> canonical device planes."""
-        spec = self._outgoing(self.sources[0])[0].spec
-        return to_device(host_to_planes(host_frame, spec), self.device)
+        """The only source's host frame -> canonical device planes."""
+        if len(self.sources) != 1:
+            raise ValueError(f"{len(self.sources)} sources: use "
+                             f"upload_sources")
+        return self.upload_sources({self.sources[0].name: host_frame})[
+            self.sources[0].name]
+
+    def upload_sources(self, host_frames: Dict) -> Dict[str, Dict]:
+        """{source name: host frame} -> {source name: device planes}."""
+        return {name: to_device(host_to_planes(
+                    frame, self._source_spec(self[name])), self.device)
+                for name, frame in host_frames.items()}
 
     def step(self, planes: Dict, state: Dict, params: Dict):
-        """Run the built chain on device planes: -> (tail planes, state).
-        Launches work on the device and returns without waiting for it."""
+        """Run the built stages on the only source's device planes:
+        -> (tail planes, state).  Launches work on the device and returns
+        without waiting for it."""
+        if len(self.sources) != 1:
+            raise ValueError(f"{len(self.sources)} sources: use step_sources")
+        return self.step_sources({self.sources[0].name: planes}, state,
+                                 params)
+
+    def step_sources(self, inputs: Dict[str, Dict], state: Dict,
+                     params: Dict):
+        """Run the built stages over the DAG on {source name: device planes,
+        optionally with ``"__meta__"``}: -> (tail planes, state)."""
+        produced: Dict[int, Dict] = {}
+
+        def value_of(elem) -> Dict:
+            if isinstance(elem, SourceElement):
+                return inputs[elem.name]
+            return produced[id(elem)]
+
         new_state = dict(state)
         for st in self.stages:
+            e = st.element
+            ins = self._incoming(e)
             if st.passthrough:
+                produced[id(e)] = value_of(ins[0].upstream)
                 continue
-            name = st.element.name
             try:
-                planes, new_state[name] = st.process(
-                    planes, state.get(name, ()), params.get(name, {}))
+                if st.in_spec is None:  # aggregator: one input per pad
+                    pad_inputs, pad_meta = {}, {}
+                    for ln in ins:
+                        v = value_of(ln.upstream)
+                        pad_meta[ln.sink_pad] = v.get(META)
+                        pad_inputs[ln.sink_pad] = _strip_meta(v)
+                    prm = dict(params.get(e.name, {}))
+                    prm["__pad_meta__"] = pad_meta
+                    out, new_state[e.name] = st.process(
+                        pad_inputs, state.get(e.name, ()), prm)
+                else:
+                    src = value_of(ins[0].upstream)
+                    out, new_state[e.name] = st.process(
+                        _strip_meta(src), state.get(e.name, ()),
+                        params.get(e.name, {}))
+                    if src.get(META) is not None:
+                        out = dict(out, **{META: src[META]})  # flags travel
             except Exception as exc:
-                raise PipelineError(name, self.frames, exc) from exc
-        return planes, new_state
+                raise PipelineError(e.name, self.frames, exc) from exc
+            produced[id(e)] = out
+        if self.sinks:
+            tail = value_of(self._incoming(self.sinks[0])[0].upstream)
+        elif self.stages:
+            tail = value_of(self.stages[-1].element)
+        else:
+            tail = inputs[self.sources[0].name]
+        return _strip_meta(tail), new_state
+
+    # -- output clock + per-source buffer selection -------------------------
+
+    def _clock(self):
+        """Output timeline rate (the aggregator's srcpad clock: the
+        negotiated tail spec's fps, max input fps for a compositor) plus
+        per-source timing info."""
+        if self.sinks:
+            tail_spec = self._incoming(self.sinks[0])[0].spec
+        elif self.stages:
+            tail_spec = self.stages[-1].out_spec
+        else:
+            tail_spec = self._source_spec(self.sources[0])
+        out_fps = float(tail_spec.fps) or 25.0
+        infos = []
+        for s in self.sources:
+            spec = self._source_spec(s)
+            infos.append((s, spec, float(spec.fps) or out_fps,
+                          s.timestamp_offset(), s.num_frames()))
+        return out_fps, infos
+
+    @staticmethod
+    def _clock_num_frames(out_fps, infos, num_frames):
+        """Output frame count: the stream runs until ALL sources are past
+        their last buffer (aggregator EOS semantics), capped by the
+        caller."""
+        ends = []
+        for _, _, fps, off, n in infos:
+            if n is None:
+                ends = None  # unbounded source: the caller must bound the run
+                break
+            ends.append(off + n / fps)
+        computed = None
+        if ends:
+            computed = max(1, int(math.ceil(max(ends) * out_fps - 1e-6)))
+        if num_frames is None:
+            if computed is None:
+                raise ValueError("unbounded pipeline: pass num_frames or "
+                                 "set num-buffers on the source")
+            return computed
+        return min(num_frames, computed) if computed is not None else num_frames
+
+    @staticmethod
+    def _select_buffers(k, out_fps, infos):
+        """Timestamp-driven buffer selection for output frame k: each source
+        contributes its latest buffer with pts <= the output deadline.
+        -> {source name: (buffer index, meta dict of host numbers)}."""
+        deadline = k / out_fps + 1e-9
+        sel = {}
+        for s, spec, fps, off, n in infos:
+            j = int(math.floor((deadline - off) * fps))
+            if (n is not None and j >= n
+                    and s.buffer_pts(n - 1, spec) + 1.0 / fps > deadline):
+                # custom pts later than the frame rate implies: the last
+                # buffer is not due or not over yet, so the stream has not
+                # ended (tpuvf marks it ended here, showing a buffer before
+                # its pts); with default pts this never holds
+                j = n - 1
+            # refine for sources with custom (monotonic) per-buffer pts
+            limit = n if n is not None else j + 2
+            while j + 1 < limit and s.buffer_pts(j + 1, spec) <= deadline:
+                j += 1
+            while j >= 0 and s.buffer_pts(j, spec) > deadline:
+                j -= 1
+            started = j >= 0
+            ended = n is not None and j >= n
+            gen_j = min(max(j, 0), n - 1) if n is not None else max(j, 0)
+            flags = s.buffer_meta(gen_j, spec)
+            sel[s.name] = (gen_j, {
+                "pts": s.buffer_pts(gen_j, spec),
+                "tff": 1 if flags.get("tff", True) else 0,
+                # started: the stream has produced its first buffer;
+                # eos: past the last buffer (held = frozen last frame)
+                "active": 1.0 if started else 0.0,
+                "eos": 1.0 if ended else 0.0,
+            })
+        return sel
 
     def run(self, num_frames: Optional[int] = None) -> int:
-        """Frame loop: generate -> upload -> step -> readback -> sink."""
+        """Frame loop: select -> generate -> upload -> step -> readback ->
+        sink."""
         if (self._built_signature is None
                 or self._static_signature() != self._built_signature):
             self.build()  # not built yet, or a property write changed it
-        src = self.sources[0]
-        limit = src.num_frames()
-        if num_frames is None:
-            if limit is None:
-                raise ValueError("unbounded pipeline: pass num_frames or "
-                                 "set num-buffers on the source")
-            num_frames = limit
-        elif limit is not None:
-            num_frames = min(num_frames, limit)
+        out_fps, infos = self._clock()
+        num_frames = self._clock_num_frames(out_fps, infos, num_frames)
         sink = self.sinks[0] if self.sinks else None
         sink_spec = self._incoming(sink)[0].spec if sink else None
-        src_spec = self._outgoing(src)[0].spec
         params = self.params()
         state = self.state
+        uploaded = {}  # source name -> (buffer index, device planes)
         t0 = time.perf_counter()
         for i in range(num_frames):
-            planes = self.upload(src.generate(i, src_spec))
-            out, state = self.step(planes, state, params)
+            inputs = {}
+            for name, (j, meta) in self._select_buffers(
+                    i, out_fps, infos).items():
+                cached = uploaded.get(name)
+                if cached is None or cached[0] != j:
+                    src = self[name]
+                    host = src.generate(j, self._source_spec(src))
+                    cached = uploaded[name] = (
+                        j, self.upload_sources({name: host})[name])
+                inputs[name] = dict(cached[1], **{META: meta})
+            out, state = self.step_sources(inputs, state, params)
             self.state = state
             if sink is not None:
                 sink.consume(planes_to_host(to_host(out), sink_spec),
