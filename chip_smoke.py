@@ -24,6 +24,14 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    four u8/f32 draws, OVER, OVER at alpha 0.7, ADD), a checker background
    with negative positions and SOURCE, and more draws than one launch
    holds; its device time is also read from torch.profiler;
+   K5 (deinterlace_u8, vfdeinterlace's field kernel) against
+   deinterlace_plain at 1080p RGBA8, bitwise: bob, weave and greedy-H,
+   tff True/False, with and without a previous frame, threshold 0.3, and
+   a band whose motion equals the threshold exactly (it must take bob);
+   K6 (overlay_blend_u8, vfoverlay's rect blend) against
+   overlay_blend_plain, bitwise: config 5's 4K uint8 canvas with the
+   256x256 red PNG at (128, 128), a 1080p float32 frame with a stretched
+   640x360 rect partly off-frame at relative-x 0.8, and an empty rect;
 4. the main paths through tpuvf_torch.cli.launch.parse_pipeline on "cuda",
    8 frames each: (a) appsrc NV12 1920x1080 -> vfmetalconvertscale -> BGRA
    640x480 -> vfmetalvideofilter b/c/s -> appsink; (b) the same at
@@ -31,20 +39,29 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    vfmetalvideofilter b/c/s + chroma key + a seeded non-identity 33^3 .cube
    -> appsink NV12, and the same to BGRA through vfmetalconvertscale;
    (d) appsrc RGBA 1920x1080 -> vfmetalvideofilter 17^3 grade + contrast +
-   sharpness -> BGRA; (e) BASELINE config 5 without its PNG overlay: four
-   appsrcs (BGRA 4K, NV12 1080p, BGRA 720p at alpha 0.7, NV12 720p ADD)
-   -> vfmetalcompositor -> BGRA 3840x2160; (f) a checker composite to NV12
-   1920x1080 of a scaled NV12 1080p pad at a negative position and a
-   keep-aspect BGRA pad.  The kernels' launch counters are set to 0 just
-   before each run and read just after; each kernel of the path must have
-   grown.
+   sharpness -> BGRA; (e) BASELINE config 5: four appsrcs (BGRA 4K, NV12
+   1080p, BGRA 720p at alpha 0.7, NV12 720p ADD) -> vfmetalcompositor ->
+   BGRA 3840x2160 -> vfmetaloverlay of a 256x256 red PNG (alpha 128) at
+   (128, 128); (f) a checker composite to NV12 1920x1080 of a scaled NV12
+   1080p pad at a negative position and a keep-aspect BGRA pad;
+   (g) BASELINE config 4: appsrc I420 1920x1080 interlaced ->
+   vfmetaldeinterlace greedy-H threshold 0.3 -> I420, a block moving over
+   still frames; (g') BGRA 1920x1080 weave with field-layout=auto and
+   each buffer's pushed TFF flag alternating; (h) BASELINE config 2:
+   appsrc BGRA 640x480 -> vfmetaltransform clockwise, crop-left 32,
+   crop-top 16; (h') NV12 1920x1080 counterclockwise, crop-right 64 ->
+   NV12; (h'') NV12 1920x1080 rotate-180 (the flip fast path).  The
+   kernels' launch counters are set to 0 just before each run and read
+   just after; each kernel of the path must have grown.
    Frame 0 must be within 1 LSB of the same pipeline on the CPU;
-   device-resident us/frame of the built step and wall fps of Pipeline.run
-   (upload and readback included) are printed;
-5. three small pipelines on the card against the repo's numpy oracle of the
+   device-resident us/frame of the built step (CUDA events and the host
+   clock), its device-busy us (torch.profiler) and idle share, and wall fps
+   of Pipeline.run (upload and readback included) are printed;
+5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
-   b/c/s + chroma key + a 9^3 LUT, and a BGRA + NV12 (alpha 0.6) composite
-   over the checker background.
+   b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
+   over the checker background, two NV12 frames through greedy-H, an NV12
+   transform clockwise with crops, and a PNG overlay on NV12.
 
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Matmul TF32 is switched off (the sampler
@@ -66,15 +83,23 @@ FRAMES = 8
 BCS = "vfmetalvideofilter brightness=0.05 contrast=1.1 saturation=1.2"
 CONFIG3 = ("vfmetalvideofilter brightness=0.1 contrast=1.2 saturation=1.3 "
            "chroma-key-enabled=true")
-# BASELINE config 5 (bench/configs.py:186-257) without its PNG overlay
+# BASELINE config 5 (bench/configs.py:186-257): the 4-pad 4K composite and
+# its 256x256 red PNG overlay at (128, 128) ({png}), which tpuvf folds into
+# the composite and the port runs as its own element (the same values for
+# an RGB output, tpuvf/runtime/pipeline.py:541-554)
 CONFIG5 = ("vfmetalcompositor name=c background=black sink_1::xpos=1920 "
            "sink_2::ypos=1080 sink_2::alpha=0.7 sink_3::xpos=1920 "
            "sink_3::ypos=1080 sink_3::operator=add "
-           "! video/x-raw,format=BGRA,width=3840,height=2160 ! appsink "
+           "! video/x-raw,format=BGRA,width=3840,height=2160 "
+           "! vfmetaloverlay location={png} x=128 y=128 ! appsink "
            "appsrc name=s0 format=BGRA width=3840 height=2160 ! c.sink_0 "
            "appsrc name=s1 format=NV12 width=1920 height=1080 ! c.sink_1 "
            "appsrc name=s2 format=BGRA width=1280 height=720 ! c.sink_2 "
            "appsrc name=s3 format=NV12 width=1280 height=720 ! c.sink_3")
+# BASELINE config 4 (bench/configs.py:177-183)
+CONFIG4 = ("appsrc format=I420 width=1920 height=1080 "
+           "! video/x-raw,interlace-mode=interleaved ! vfmetaldeinterlace "
+           "method=greedyh motion-threshold=0.3 ! appsink")
 CHAIN_F = ("vfmetalcompositor name=c background=checker sink_0::width=1280 "
            "sink_0::height=720 sink_0::xpos=-100 sink_0::ypos=40 "
            "sink_1::xpos=1000 sink_1::ypos=400 sink_1::width=800 "
@@ -111,10 +136,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def counters():
     """{kernel label: its wrapper}; each wrapper counts its launches."""
-    from tpuvf_torch.kernels import composite, emit, lut, resample
+    from tpuvf_torch.kernels import (composite, deinterlace, emit, lut,
+                                     overlay, resample)
 
     return {"K1": resample.resample_rows, "K1b": resample.resample_cols,
-            "K2": emit.emit, "K3": lut.lut3d, "K4": composite.composite_fold}
+            "K2": emit.emit, "K3": lut.lut3d, "K4": composite.composite_fold,
+            "K5": deinterlace.deinterlace, "K6": overlay.overlay_blend}
 
 
 def phase_card():
@@ -366,9 +393,9 @@ def phase_lut(summary):
                    plain_ms)
 
 
-def profiled_us(fn, reps: int = 20) -> float:
-    """Device time per call of fn() in us: the CUDA kernels' summed self
-    time in torch.profiler over `reps` calls."""
+def device_breakdown(fn, reps: int = 20):
+    """torch.profiler over `reps` calls of fn() -> (device us per call,
+    [(kernel name, us per call)] largest first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,10 +405,19 @@ def profiled_us(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
+    per = sorted(((e.key, e.self_device_time_total / reps)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    total = sum(us for _, us in per)
     if total <= 0:
         fail("torch.profiler saw no device time")
-    return total / reps
+    return total, per
+
+
+def profiled_us(fn, reps: int = 20) -> float:
+    """Device time per call of fn() in us: the CUDA kernels' summed self
+    time in torch.profiler over `reps` calls."""
+    return device_breakdown(fn, reps)[0]
 
 
 def composite_cases(gen):
@@ -458,6 +494,157 @@ def phase_composite(summary):
         record(summary, "K4", err, ms if i == 0 else None, plain_ms)
 
 
+def tie_threshold():
+    """A float32 threshold that a motion of one channel's 200 - 100 step
+    equals exactly: sqrt(d * d) == |d| in IEEE round to nearest."""
+    import numpy as np
+
+    inv = np.float32(1.0 / 255.0)
+    return float(np.float32(200) * inv - np.float32(100) * inv)
+
+
+def phase_deinterlace(summary):
+    """K5 against deinterlace_plain at 1080p RGBA8; the JSON times are
+    greedy-H's with a previous frame (chain (g))."""
+    import torch
+
+    from tpuvf_torch.kernels import deinterlace as kd
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cur = torch.randint(0, 256, (4, 1080, 1920), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    prev = cur.clone()
+    prev[:, :, 960:] = torch.randint(0, 256, (4, 1080, 960), generator=gen,
+                                     device="cuda", dtype=torch.uint8)
+    thr = torch.tensor(0.3, device="cuda")
+    cases = [(m, tff, has_prev, thr) for m in (kd.METHOD_BOB, kd.METHOD_WEAVE,
+                                               kd.METHOD_GREEDYH)
+             for tff in (True, False) for has_prev in (True, False)]
+    # the knife edge: half the discarded pixels of a band move by exactly the
+    # threshold (R 200 vs 100), the other half by one step less
+    tie_cur, tie_prev = cur.clone(), cur.clone()
+    tie_cur[0, :, :480], tie_prev[0, :, :480] = 200, 100
+    tie_cur[0, :, :240] = 199
+    tie = torch.tensor(tie_threshold(), device="cuda")
+    names = {kd.METHOD_BOB: "bob", kd.METHOD_WEAVE: "weave",
+             kd.METHOD_GREEDYH: "greedy-H"}
+    for i, (method, tff, has_prev, t) in enumerate(
+            cases + [(kd.METHOD_GREEDYH, True, True, tie)]):
+        c, p = (tie_cur, tie_prev) if t is tie else (cur, prev)
+        args = (c, p, method, tff, has_prev, t)
+        got = kd.deinterlace(*args)
+        want = kd.deinterlace_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        label = (f"1080p {names[method]} tff={tff} has_prev={has_prev}"
+                 + (" threshold tie" if t is tie else " threshold 0.3"))
+        if not torch.equal(got, want):
+            fail(f"K5 {label}: kernel != deinterlace_plain (max |diff| "
+                 f"{err})")
+        if t is tie:
+            prev_taken = (got[:, 1::2, :480] == p[:, 1::2, :480]).all(0)
+            if not (prev_taken[:, :240].all() and
+                    not prev_taken[:, 240:].any()):
+                fail("K5 threshold tie: motion == threshold did not take bob")
+        timed = method == kd.METHOD_GREEDYH and tff and has_prev and t is thr
+        ms = plain_ms = None
+        note = ""
+        if timed or i == 0 or t is tie:
+            ms = cuda_ms(lambda: kd.deinterlace(*args))
+            plain_ms = cuda_ms(lambda: kd.deinterlace_plain(*args))
+            note = f" | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+        if timed:
+            dev_us = profiled_us(lambda: kd.deinterlace(*args))
+            plain_dev_us = profiled_us(lambda: kd.deinterlace_plain(*args))
+            note += (f" | device (profiler) kernel {dev_us:.1f} us, plain "
+                     f"{plain_dev_us:.1f} us")
+        print(f"[3 K5] {label}: torch.equal OK{note}", flush=True)
+        record(summary, "K5", err, ms if timed else None, plain_ms)
+
+
+def red_png(path, size=256, alpha=128):
+    """BASELINE config 5's overlay image: a size x size red PNG."""
+    import numpy as np
+
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., 0], img[..., 3] = 255, alpha
+    return write_png(path, img)
+
+
+def write_png(path, rgba):
+    """A minimal 8-bit RGBA PNG (one IDAT, filter 0 rows)."""
+    import struct
+    import zlib
+
+    h, w = rgba.shape[:2]
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    return str(path)
+
+
+def phase_overlay(summary, tmp):
+    """K6 against overlay_blend_plain; the JSON times are config 5's shape
+    (chain (e))."""
+    import numpy as np
+    import torch
+
+    from tpuvf_torch.io import png
+    from tpuvf_torch.kernels import overlay as ko
+
+    red = png.decode_premultiplied(
+        Path(red_png(Path(tmp) / "red.png")).read_bytes())
+    rng = np.random.default_rng(6)
+    art = rng.integers(0, 256, (120, 200, 4), dtype=np.uint8)
+    art = png.decode_premultiplied(
+        Path(write_png(Path(tmp) / "art.png", art)).read_bytes())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    canvas = torch.randint(0, 256, (4, 2160, 3840), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    frame = torch.rand((4, 1080, 1920), generator=gen, device="cuda")
+    frame[3] = 1.0
+    cases = [
+        ("config 5 shape: 4K u8 canvas, 256x256 red alpha 128 at (128, 128)",
+         canvas, red, (128.0, 128.0, 256.0, 256.0), 1.0),
+        ("1080p f32, 200x120 stretched to 640x360 at relative-x 0.8 "
+         "(partly off-frame), alpha 0.75", frame, art,
+         (0.8 * 1920, 300.0, 640.0, 360.0), 0.75),
+        ("1080p f32, empty rect (off-frame)", frame, art,
+         (5000.0, 300.0, 640.0, 360.0), 1.0),
+    ]
+    for i, (label, src, image, place, alpha) in enumerate(cases):
+        rect, planes = ko.overlay_rect(image, src.shape[2], src.shape[1],
+                                       *place)
+        args = (src, rect, torch.from_numpy(planes).cuda(),
+                torch.tensor(alpha, device="cuda"))
+        got = ko.overlay_blend(*args)
+        want = ko.overlay_blend_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"K6 {label}: kernel != overlay_blend_plain (max |diff| "
+                 f"{err})")
+        ms = cuda_ms(lambda: ko.overlay_blend(*args))
+        plain_ms = cuda_ms(lambda: ko.overlay_blend_plain(*args))
+        device = ""
+        if i == 0:
+            dev_us = profiled_us(lambda: ko.overlay_blend(*args))
+            plain_dev_us = profiled_us(lambda: ko.overlay_blend_plain(*args))
+            device = (f" | device (profiler) kernel {dev_us:.1f} us, plain "
+                      f"{plain_dev_us:.1f} us")
+        print(f"[3 K6] {label}, rect {rect}: torch.equal OK | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us{device}",
+              flush=True)
+        record(summary, "K6", err, ms if i == 0 else None, plain_ms)
+
+
 def nv12_frames(n, w, h, seed):
     import numpy as np
 
@@ -474,14 +661,35 @@ def rgba_frames(n, w, h, seed):
     return [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for _ in range(n)]
 
 
-def fed_pipeline(desc, feeds, device):
-    """The pipeline on `device` with {appsrc name: frames} pushed."""
+def i420_moving_block(n, w, h, seed, block=96):
+    """n I420 frames, each the one before with a block moved on: still
+    areas weave from the previous frame, the block's trail bobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frame = {"y": rng.integers(0, 256, (h, w), dtype=np.uint8),
+             "u": rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+             "v": rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8)}
+    frames = []
+    for k in range(n):
+        frame = {p: a.copy() for p, a in frame.items()}
+        x, y = 200 + 64 * k, 300 + 16 * k
+        frame["y"][y:y + block, x:x + block] = 235 - 20 * k
+        frame["u"][y // 2:(y + block) // 2, x // 2:(x + block) // 2] = 90
+        frames.append(frame)
+    return frames
+
+
+def fed_pipeline(desc, feeds, device, tffs=None):
+    """The pipeline on `device` with {appsrc name: frames} pushed, each
+    with its TFF flag from {appsrc name: [bool]} where given."""
     from tpuvf_torch.cli.launch import parse_pipeline
 
     pipe = parse_pipeline(desc, device=device)
     for name, frames in feeds.items():
-        for f in frames:
-            pipe[name].push(f)
+        flags = (tffs or {}).get(name) or [None] * len(frames)
+        for f, tff in zip(frames, flags):
+            pipe[name].push(f, tff=tff)
         pipe[name].end_of_stream()
     pipe.negotiate()
     pipe.build()
@@ -492,7 +700,7 @@ def _planes(frame):
     return frame if isinstance(frame, dict) else {"frame": frame}
 
 
-def phase_chain(label, desc, feeds, expect, opaque=False):
+def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     """Drive one main path on the card, fed {appsrc name: frames};
     -> {kernel: launches}."""
     import numpy as np
@@ -500,7 +708,7 @@ def phase_chain(label, desc, feeds, expect, opaque=False):
 
     frames = max(feeds.values(), key=len)
     wrappers = counters()
-    pipe = fed_pipeline(desc, feeds, "cuda")
+    pipe = fed_pipeline(desc, feeds, "cuda", tffs)
     for w in wrappers.values():
         w.launches = 0
     n = pipe.run()
@@ -521,7 +729,8 @@ def phase_chain(label, desc, feeds, expect, opaque=False):
             fail(f"{label}: frame {i} alpha is not opaque")
     if all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0]):
         fail(f"{label}: distinct input frames gave equal outputs")
-    cpu = fed_pipeline(desc, {k: v[:1] for k, v in feeds.items()}, "cpu")
+    cpu = fed_pipeline(desc, {k: v[:1] for k, v in feeds.items()}, "cpu",
+                       tffs)
     cpu.run()
     ref = _planes(cpu["appsink0"].frames[0])
     worst, differ, total = 0, 0, 0
@@ -536,22 +745,38 @@ def phase_chain(label, desc, feeds, expect, opaque=False):
 
     inputs = pipe.upload_sources({k: v[0] for k, v in feeds.items()})
     params, state = pipe.params(), pipe.state
-    step_ms = cuda_ms(lambda: pipe.step_sources(inputs, state, params))
+
+    def step():
+        return pipe.step_sources(inputs, state, params)
+
+    step_ms = cuda_ms(step)
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    busy_us, per = device_breakdown(step, reps)
+    top = ", ".join(f"{name[:40]} {us:.1f}" for name, us in per[:4])
     pipe.frames, pipe.wall_seconds = 0, 0.0
     pipe.run()  # warm: planned and allocated by the first run
     fps = pipe.frames / pipe.wall_seconds
     counts = ", ".join(f"{k} {v}" for k, v in launches.items())
     print(f"[4 main path] {label}: {n} frames on cuda | launches {counts} | "
           f"frame 0 vs CPU max {worst} LSB, {differ / total:.4%} differ | "
-          f"device step {step_ms * 1e3:.1f} us/frame | Pipeline.run wall "
-          f"{fps:.2f} fps (upload + readback)", flush=True)
+          f"device step {step_ms * 1e3:.1f} us/frame (events), "
+          f"{host_us:.1f} us (host clock), busy {busy_us:.1f} us, idle "
+          f"{max(0.0, 1.0 - busy_us / host_us):.3f} (largest, us: {top}) | "
+          f"Pipeline.run wall {fps:.2f} fps (upload + readback)", flush=True)
     return launches
 
 
 def phase_chains(tmp):
-    """Chains (a)-(d); -> {kernel: launches summed over the chains}."""
+    """Chains (a)-(h''); -> {kernel: launches summed over the chains}."""
     lut33 = write_cube(Path(tmp) / "grade33.cube", grade_cube(33, seed=3))
     lut17 = write_cube(Path(tmp) / "grade17.cube", grade_cube(17, seed=17))
+    red = red_png(Path(tmp) / "config5-red.png")
     chains = [
         ("(a) NV12 1920x1080 -> BGRA 640x480 + b/c/s",
          f"appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale ! "
@@ -580,22 +805,49 @@ def phase_chains(tmp):
          f"! video/x-raw,format=BGRA ! appsink",
          {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=17)}, ("K2", "K3"),
          False),
-        ("(e) config 5 without the overlay: BGRA 4K + NV12 1080p + BGRA 720p "
-         "alpha 0.7 + NV12 720p ADD -> BGRA 4K", CONFIG5,
+        ("(e) config 5: BGRA 4K + NV12 1080p + BGRA 720p alpha 0.7 + NV12 "
+         "720p ADD -> BGRA 4K, then the 256x256 PNG overlay at (128, 128)",
+         CONFIG5.format(png=red),
          {"s0": rgba_frames(FRAMES, 3840, 2160, seed=50),
           "s1": nv12_frames(FRAMES, 1920, 1080, seed=51),
           "s2": rgba_frames(FRAMES, 1280, 720, seed=52),
           "s3": nv12_frames(FRAMES, 1280, 720, seed=53)},
-         ("K1", "K1b", "K2", "K4"), False),
+         ("K1", "K1b", "K2", "K4", "K6"), False),
         ("(f) checker composite -> NV12 1080p: NV12 1080p scaled to 1280x720 "
          "at xpos -100 + BGRA 720p keep-aspect", CHAIN_F,
          {"s0": nv12_frames(FRAMES, 1920, 1080, seed=60),
           "s1": rgba_frames(FRAMES, 1280, 720, seed=61)},
          ("K1", "K1b", "K2", "K4"), False),
+        ("(g) config 4: I420 1920x1080 interlaced, greedy-H threshold 0.3, "
+         "a moving block -> I420", CONFIG4,
+         {"appsrc0": i420_moving_block(FRAMES, 1920, 1080, seed=4)},
+         ("K1", "K1b", "K2", "K5"), False),
+        ("(g') BGRA 1920x1080 weave, field-layout=auto, pushed tff "
+         "alternating -> BGRA",
+         "appsrc format=BGRA width=1920 height=1080 ! vfmetaldeinterlace "
+         "method=weave field-layout=auto ! appsink",
+         {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=41)}, ("K5",),
+         False, {"appsrc0": [i % 2 == 0 for i in range(FRAMES)]}),
+        ("(h) config 2: BGRA 640x480 clockwise, crop-left 32, crop-top 16",
+         "appsrc format=BGRA width=640 height=480 ! vfmetaltransform "
+         "method=clockwise crop-left=32 crop-top=16 ! appsink",
+         {"appsrc0": rgba_frames(FRAMES, 640, 480, seed=2)},
+         ("K1", "K1b", "K2"), False),
+        ("(h') NV12 1920x1080 counterclockwise, crop-right 64 -> NV12",
+         "appsrc format=NV12 width=1920 height=1080 ! vfmetaltransform "
+         "method=counterclockwise crop-right=64 ! appsink",
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=21)},
+         ("K1", "K1b", "K2"), False),
+        ("(h'') NV12 1920x1080 rotate-180 (the fast path) -> NV12",
+         "appsrc format=NV12 width=1920 height=1080 ! vfmetaltransform "
+         "method=rotate-180 ! appsink",
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=22)},
+         ("K1", "K1b", "K2"), False),
     ]
     total = {}
-    for label, desc, frames, expect, opaque in chains:
-        for k, v in phase_chain(label, desc, frames, expect, opaque).items():
+    for label, desc, frames, expect, opaque, *tffs in chains:
+        for k, v in phase_chain(label, desc, frames, expect, opaque,
+                                *tffs).items():
             total[k] = total.get(k, 0) + v
     return total
 
@@ -721,6 +973,67 @@ def phase_oracle(tmp):
             "BGRA 40x24", host_to_planes(pipe["appsink0"].frames[0],
                                          out_spec), want)
 
+    # tests/test_deinterlace.py's greedy-H golden case: two NV12 frames, the
+    # second still on its top half (weave) and new below (bob)
+    dw, dh = 32, 24
+    spec = FrameSpec(VideoFormat.NV12, dw, dh)
+    fields = nv12_frames(2, dw, dh, seed=10)
+    fields[1]["y"][:12], fields[1]["uv"][:6] = (fields[0]["y"][:12],
+                                                fields[0]["uv"][:6])
+    desc = (f"appsrc format=NV12 width={dw} height={dh} ! vfmetaldeinterlace "
+            f"method=greedyh motion-threshold=0.25 ! appsink")
+    pipe = fed_pipeline(desc, {"appsrc0": fields}, "cuda")
+    pipe.run()
+    prev_q = None
+    for i, host in enumerate(fields):
+        cur_q = metal_ref.quant(metal_ref.sample_rgba(
+            host_to_planes(host, spec), "NV12", spec.matrix_index, dw, dh,
+            filt="nearest"))
+        cur = metal_ref.dequant(cur_q)
+        prev = (np.zeros_like(cur) if prev_q is None
+                else metal_ref.dequant(prev_q))
+        out = element_ref.deinterlace(cur, prev, 3, True, 0.25,
+                                      has_prev=prev_q is not None)
+        want = metal_ref.pack_rgba(metal_ref.quant(out).transpose(2, 0, 1),
+                                   "NV12", spec.matrix_index)
+        compare(f"NV12 {dw}x{dh} greedy-H threshold 0.25, frame {i}",
+                host_to_planes(pipe["appsink0"].frames[i], spec), want)
+        prev_q = cur_q
+
+    # tests/test_transform_overlay.py's golden cases: an NV12 transform
+    # clockwise with crops, and a PNG overlay on NV12
+    tw, th = 48, 32
+    spec = FrameSpec(VideoFormat.NV12, tw, th)
+    frame = nv12_frames(1, tw, th, seed=11)
+    planes = host_to_planes(frame[0], spec)
+    desc = (f"appsrc format=NV12 width={tw} height={th} ! vfmetaltransform "
+            f"method=clockwise crop-left=4 crop-top=2 ! appsink")
+    pipe = fed_pipeline(desc, {"appsrc0": frame}, "cuda")
+    pipe.run()
+    want = metal_ref.pack_rgba(element_ref.transform(
+        planes, "NV12", spec.matrix_index, tw, th, 1, 4, 0, 2, 0), "NV12",
+        spec.matrix_index)
+    compare(f"NV12 {tw}x{th} clockwise, crop-left 4, crop-top 2",
+            host_to_planes(pipe["appsink0"].frames[0], spec), want)
+
+    from tpuvf_torch.io import png
+
+    art = np.random.default_rng(12).integers(0, 256, (12, 16, 4),
+                                             dtype=np.uint8)
+    art[..., 3] = 200
+    path = write_png(Path(tmp) / "oracle-ov.png", art)
+    desc = (f"appsrc format=NV12 width={tw} height={th} ! vfmetaloverlay "
+            f"location={path} x=8 y=4 alpha=0.7 ! appsink")
+    pipe = fed_pipeline(desc, {"appsrc0": frame}, "cuda")
+    pipe.run()
+    video = metal_ref.sample_rgba(planes, "NV12", spec.matrix_index, tw, th)
+    out = element_ref.overlay(video, png.decode_premultiplied(
+        Path(path).read_bytes()), 8, 4, 16, 12, 0.7)
+    want = metal_ref.pack_rgba(metal_ref.quant(out).transpose(2, 0, 1),
+                               "NV12", spec.matrix_index)
+    compare(f"NV12 {tw}x{th} + 16x12 PNG at (8, 4) alpha 0.7",
+            host_to_planes(pipe["appsink0"].frames[0], spec), want)
+
 
 KERNELS = (
     # (label, JSON name, source, the TPU kernel it replaces)
@@ -734,6 +1047,10 @@ KERNELS = (
      "scripts/bench_gather.py:111"),
     ("K4", "composite_fold (K4)", "tpuvf_torch/csrc/composite.cu",
      "scripts/bench_comp_pallas.py:163"),
+    ("K5", "deinterlace_u8 (K5)", "tpuvf_torch/csrc/deinterlace.cu",
+     "tpuvf/kernels/deinterlace.py:135"),
+    ("K6", "overlay_blend_u8 (K6)", "tpuvf_torch/csrc/overlay.cu",
+     "tpuvf/elements/overlay.py:595"),
 )
 
 
@@ -754,7 +1071,9 @@ def main() -> int:
     phase_emit(summary)
     phase_lut(summary)
     phase_composite(summary)
+    phase_deinterlace(summary)
     with tempfile.TemporaryDirectory() as tmp:
+        phase_overlay(summary, tmp)
         launches = phase_chains(tmp)
         phase_oracle(tmp)
     kernels = [{"name": name, "route": "cuda", "source": source,

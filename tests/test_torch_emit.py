@@ -240,6 +240,18 @@ def test_build_lists_every_source_and_exported_function():
     assert exported == set(_build.SIGNATURES)
 
 
+def test_signatures_match_the_c_parameter_counts():
+    """ctypes passes exactly the arguments SIGNATURES lists: a count that
+    differs from the C declaration shifts every later argument."""
+    counted = 0
+    for src in _build.sources():
+        for name, params in re.findall(r'^extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text(), re.M):
+            assert len(params.split(",")) == len(_build.SIGNATURES[name]), name
+            counted += 1
+    assert counted >= 5  # the macro-declared emit entries are counted apart
+
+
 def test_build_is_stale_when_any_source_is_newer(tmp_path, monkeypatch):
     src_dir = tmp_path / "csrc"
     src_dir.mkdir()

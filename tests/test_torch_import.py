@@ -18,10 +18,13 @@ MODULES = [
     "tpuvf_torch.core.registry", "tpuvf_torch.core.spec",
     "tpuvf_torch.kernels._build", "tpuvf_torch.kernels.color",
     "tpuvf_torch.kernels.composite", "tpuvf_torch.kernels.convert",
-    "tpuvf_torch.kernels.emit", "tpuvf_torch.kernels.filter",
-    "tpuvf_torch.kernels.lut", "tpuvf_torch.kernels.resample",
+    "tpuvf_torch.kernels.deinterlace", "tpuvf_torch.kernels.emit",
+    "tpuvf_torch.kernels.filter", "tpuvf_torch.kernels.lut",
+    "tpuvf_torch.kernels.overlay", "tpuvf_torch.kernels.resample",
     "tpuvf_torch.kernels.sample", "tpuvf_torch.elements",
-    "tpuvf_torch.elements.compositor", "tpuvf_torch.runtime.pipeline",
+    "tpuvf_torch.elements.compositor", "tpuvf_torch.elements.deinterlace",
+    "tpuvf_torch.elements.overlay", "tpuvf_torch.elements.transform",
+    "tpuvf_torch.runtime.pipeline",
     "tpuvf_torch.runtime.params", "tpuvf_torch.cli.launch",
 ]
 

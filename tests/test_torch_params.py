@@ -85,9 +85,61 @@ def test_compositor_pad_params_carry_as_host_numbers():
     assert params["pad.sink_0.xpos"] == -17
 
 
+@pytest.mark.parametrize("method", [1, 3])
+def test_deinterlace_state_carries_as_one_stack(method):
+    """tpuvf's prev tuple of four (H, W) uint8 planes becomes one (4, H, W)
+    uint8 tensor and has_prev a Python bool; the motion threshold is a
+    0-dim float32 tensor like the port element's own."""
+    from tpuvf.elements.deinterlace import Deinterlace as TDeinterlace
+    from tpuvf_torch.elements.deinterlace import Deinterlace as PDeinterlace
+
+    spec_t = TSpec(TFormat.NV12, 32, 24, interlaced=True)
+    spec_p = PSpec(PFormat.NV12, 32, 24, interlaced=True)
+    tel = TDeinterlace(method=method, motion_threshold=0.3)
+    pel = PDeinterlace(method=method, motion_threshold=0.3)
+    out_t = tel.transform_spec(spec_t)
+    tel.make_process(spec_t, out_t, tel.static_config(spec_t, out_t))
+    rng = np.random.default_rng(1)
+    prev = tuple(rng.integers(0, 256, (24, 32), dtype=np.uint8)
+                 for _ in range(4))
+    state = {"prev": prev, "has_prev": np.bool_(True)}
+    params, pstate = from_tpuvf(tel.traced_params(), state, "cpu")
+    own = pel.traced_params("cpu")
+    assert set(params) == set(own) == {"motion-threshold"}
+    assert torch.equal(params["motion-threshold"], own["motion-threshold"])
+    assert pstate["has_prev"] is True
+    assert pstate["prev"].dtype == torch.uint8
+    assert np.array_equal(pstate["prev"].numpy(), np.stack(prev))
+    _, fresh = from_tpuvf({}, tel.init_state(spec_t, out_t), "cpu")
+    own_state = pel.init_state(spec_p, spec_p, "cpu")
+    assert fresh["has_prev"] is own_state["has_prev"] is False
+    assert torch.equal(fresh["prev"], own_state["prev"])
+
+
+def test_overlay_alpha_carries_and_buffers_drop(tmp_path):
+    from tpuvf.elements.overlay import Overlay as TOverlay
+    from tpuvf.io import png
+    from tpuvf_torch.elements.overlay import Overlay as POverlay
+
+    path = str(tmp_path / "ov.png")
+    png.write(path, np.full((6, 8, 4), 90, np.uint8))
+    tel = TOverlay(x=3, alpha=0.35)
+    tel.set_property("location", path)
+    spec = TSpec(TFormat.BGRA, 32, 24)
+    tel.make_process(spec, spec, tel.static_config(spec, spec))
+    tparams = tel.traced_params()
+    assert any(k.startswith("__buf/") for k in tparams)
+    params, state = from_tpuvf(tparams, (), "cpu")
+    own = POverlay(x=3, alpha=0.35).traced_params("cpu")
+    assert set(params) == set(own) == {"alpha"} and state == ()
+    assert params["alpha"].dtype == torch.float32 and params["alpha"].dim() == 0
+    assert torch.equal(params["alpha"], own["alpha"])
+
+
 def test_unported_params_raise():
-    with pytest.raises(NotImplementedError, match="vfoverlay"):
+    with pytest.raises(NotImplementedError, match="vfoverlay") as err:
         from_tpuvf({"fold.vfoverlay0.alpha": np.float32(0.5)}, (), "cpu")
+    assert "its own element" in str(err.value)
     with pytest.raises(NotImplementedError):
         from_tpuvf({"weights": np.zeros((8, 24), np.float32)}, (), "cpu")
     with pytest.raises(NotImplementedError):

@@ -106,6 +106,62 @@ def test_unported_features_raise():
         port_parse("videotestsrc ! tee ! fakesink", device="cpu")
 
 
+def test_auto_field_order_per_buffer_flip():
+    """The port of tests/test_deinterlace.py's per-buffer flip: with
+    field-layout=auto each buffer deinterlaces with its own TFF flag, which
+    the runtime hands the filter as ``params["__meta__"]``."""
+    w, h = 16, 12
+    rng = np.random.default_rng(23)
+    hosts = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for _ in range(3)]
+    tffs = [True, False, True]
+
+    def run(layout, frames, flags=None):
+        pipe = port_parse(f"appsrc format=RGBA width={w} height={h} "
+                          f"! vfmetaldeinterlace method=bob field-layout={layout}"
+                          f" ! appsink", device="cpu")
+        for i, host in enumerate(frames):
+            pipe["appsrc0"].push(host, tff=None if flags is None else flags[i])
+        pipe["appsrc0"].end_of_stream()
+        assert pipe.run() == len(frames)
+        return pipe["appsink0"].frames
+
+    frames = run("auto", hosts, tffs)
+    for i, (host, tff) in enumerate(zip(hosts, tffs)):
+        layout = "top-field-first" if tff else "bottom-field-first"
+        assert np.array_equal(frames[i], run(layout, [host])[0]), (i, tff)
+    # the two field orders genuinely differ on this data
+    assert not np.array_equal(run("top-field-first", hosts[1:2])[0],
+                              run("bottom-field-first", hosts[1:2])[0])
+
+
+CLI_CHAINS = {
+    "vfmetaldeinterlace": "video/x-raw,format=I420,width=32,height=24,"
+                          "interlace-mode=interleaved ! vfmetaldeinterlace "
+                          "method=greedyh motion-threshold=0.3",
+    "vfmetaltransform": "video/x-raw,format=NV12,width=32,height=24 ! "
+                        "vfmetaltransform method=counterclockwise crop-right=4",
+    "vfmetaloverlay": "video/x-raw,format=BGRA,width=32,height=24 ! "
+                      "vfmetaloverlay location={png} x=4 y=2 alpha=0.5",
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_CHAINS))
+def test_cli_reaches_the_new_elements(name, tmp_path, capsys):
+    from tpuvf.io import png
+
+    path = tmp_path / "ov.png"
+    png.write(str(path), np.full((6, 8, 4), 200, np.uint8))
+    desc = ("videotestsrc num-buffers=2 ! "
+            + CLI_CHAINS[name].format(png=path) + " ! fakesink")
+    pipe = port_parse(desc, device="cpu")
+    pipe.build()
+    assert [st.passthrough for st in pipe.stages] == [False]
+    assert type(pipe.stages[0].element).ELEMENT_NAME == name.replace(
+        "vfmetal", "vf")
+    assert port_main(["--device", "cpu", desc]) == 0
+    assert "processed 2 frames on cpu" in capsys.readouterr().out
+
+
 def test_cli_default_cuda_device_fails_without_cuda(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -3,8 +3,11 @@
 from tpuvf_torch.elements import (  # noqa: F401
     compositor,
     convertscale,
+    deinterlace,
+    overlay,
     sinks,
     sources,
     testsrc,
+    transform,
     videofilter,
 )

@@ -31,7 +31,8 @@ because ``quant(dequant(v)) == v`` for every uint8 ``v``.
 
 Not ported (ROADMAP): tpuvf's split/cells/masked/sp render bodies and
 ``aggregate_split_ok`` (TPU layouts), the vfoverlay fold
-(``fold_overlays``), ``navigation_event`` and the ``_ctl_*`` controller
+(``fold_overlays``: a downstream vfoverlay runs as its own stage, equal
+for RGB outputs), ``navigation_event`` and the ``_ctl_*`` controller
 hooks.
 """
 

@@ -1,0 +1,118 @@
+"""vfdeinterlace — bob / weave / linear / greedy-H deinterlacing (port of
+``tpuvf.elements.deinterlace``, canonical full-frame path).
+
+- formats BGRA, RGBA, NV12, I420
+- props: method {bob=0, weave=1, linear=2, greedyh=3}, field-layout {auto,
+  top-field-first, bottom-field-first}, motion-threshold [0,1]=0.1
+  (gstvfmetaldeinterlace.m:73-112); the output is progressive
+- field order: explicit, or with `auto` each buffer's TFF flag
+  (m:169-185), which the runtime hands over as ``params["__meta__"]``;
+  the stream's `FrameSpec.tff` when a buffer carries none
+- the input is converted to an RGBA8 texture first (nearest chroma
+  upsample, metaldeinterlacerenderer.m:204-293): the K1/K1b sampler and the
+  emit K2 for YUV inputs, the planes themselves for RGB inputs (exact:
+  ``quant(dequant(v)) == v``); the field kernel K5 runs on that texture,
+  and the *input* texture becomes the previous frame (m:394-405)
+- weave/greedy-H fall back to bob on the first frame (m:326-338);
+  ``has_prev`` is a host bool, so the choice costs no device read
+- no passthrough mode
+
+State: ``{}`` for bob/linear, which never read the previous frame;
+otherwise ``{"prev": (4, H, W) uint8 tensor, "has_prev": bool}``.  tpuvf's
+split/quad link bodies and sp/dp hooks are TPU layouts and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuvf_torch.core.element import Element
+from tpuvf_torch.core.formats import CORE_FORMATS, RGB_FORMATS
+from tpuvf_torch.core.properties import PropertyDescriptor
+from tpuvf_torch.core.registry import register
+from tpuvf_torch.core.spec import FrameSpec
+from tpuvf_torch.kernels import convert
+from tpuvf_torch.kernels.deinterlace import (
+    METHOD_BOB,
+    METHOD_LINEAR,
+    deinterlace,
+)
+from tpuvf_torch.kernels.emit import emit
+from tpuvf_torch.kernels.sample import NEAREST
+
+FIELD_AUTO, FIELD_TFF, FIELD_BFF = 0, 1, 2
+
+
+@register
+class Deinterlace(Element):
+    ELEMENT_NAME = "vfdeinterlace"
+    ALIASES = ("vfmetaldeinterlace", "deinterlace")
+    KLASS = "Filter/Effect/Video/Deinterlace"
+    DESCRIPTION = "Motion-adaptive GPU deinterlacing"
+    IN_FORMATS = CORE_FORMATS
+    OUT_FORMATS = CORE_FORMATS
+    PROPERTIES = (
+        PropertyDescriptor("method", "enum", 0, "Deinterlace method",
+                           enum_values=(("bob", 0), ("weave", 1),
+                                        ("linear", 2), ("greedyh", 3))),
+        PropertyDescriptor("field-layout", "enum", 0, "Field order",
+                           enum_values=(("auto", 0), ("top-field-first", 1),
+                                        ("bottom-field-first", 2))),
+        PropertyDescriptor("motion-threshold", "float", 0.1,
+                           "Motion threshold for greedyh", 0.0, 1.0,
+                           controllable=True, traced=True),
+    )
+
+    def transform_spec(self, in_spec, out_filter=None):
+        # deinterlaced output is progressive
+        return super().transform_spec(in_spec, out_filter).with_(
+            interlaced=False)
+
+    def _stateless(self) -> bool:
+        return self.props.get("method") in (METHOD_BOB, METHOD_LINEAR)
+
+    def init_state(self, in_spec, out_spec, device=None):
+        if self._stateless():
+            # bob/linear never read the previous frame (tpuvf carries no
+            # state for them either)
+            return {}
+        return {"prev": torch.zeros((4, in_spec.height, in_spec.width),
+                                    dtype=torch.uint8, device=device),
+                "has_prev": False}
+
+    def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
+                     device):
+        cfg = dict(static)
+        method, layout = cfg["method"], cfg["field-layout"]
+        stateless = method in (METHOD_BOB, METHOD_LINEAR)
+        static_tff = (bool(in_spec.tff) if layout == FIELD_AUTO
+                      else layout == FIELD_TFF)
+        rgb_in = in_spec.format in RGB_FORMATS
+        sampler = None if rgb_in else convert.plan_rgba_sampler(
+            in_spec, in_spec.width, in_spec.height, device, filter=NEAREST)
+        matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
+
+        def resolve_tff(params) -> bool:
+            if layout != FIELD_AUTO:
+                return static_tff
+            flag = (params.get("__meta__") or {}).get("tff")
+            return static_tff if flag is None else flag != 0
+
+        def process(planes, state, params):
+            tff = resolve_tff(params)
+            # the input's RGBA8 texture (m:204-293)
+            cur_q = (planes["rgba"] if rgb_in
+                     else emit(sampler(planes), matrix_in))
+            if stateless:
+                prev, has_prev = None, False
+            else:
+                prev, has_prev = state["prev"], state["has_prev"]
+            out = deinterlace(cur_q, prev, method, tff, has_prev,
+                              params["motion-threshold"])
+            out = convert.pack_rgba(out, out_spec.format, matrix_out)
+            if stateless:
+                return out, state
+            # blit input -> prevFrame (m:394-405)
+            return out, {"prev": cur_q, "has_prev": True}
+
+        return process

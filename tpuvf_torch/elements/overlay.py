@@ -1,0 +1,162 @@
+"""vfoverlay — PNG image overlay (port of ``tpuvf.elements.overlay``,
+canonical path).
+
+- formats BGRA, RGBA, NV12, I420
+- props: location (PNG; JPEG soft-fails, see below), x/y >= 0 px,
+  width/height (0 = native image size), alpha [0,1]=1 (a traced scalar),
+  relative-x/-y in [-1,1] default -1 — relative >= 0 overrides absolute as
+  rel*frameW / rel*frameH (gstvfmetaloverlay.m:189-200, 374-420)
+- passthrough iff no image is loaded; a missing or bad file warns and stays
+  passthrough (m:94-99, 114-127).  JPEG images need tpuvf's native decoder,
+  which the port does not have yet: they soft-fail with a warning naming it
+- blending: video.rgb = mix(video.rgb, overlay.rgb, overlay.a * alpha)
+  inside the overlay rect (metaloverlay_shaders.h:79-86) on the
+  premultiplied image, resampled LINEAR when stretched
+
+At build time the image is resampled to its rect on the host
+(``overlay.overlay_rect``) and moved to the device once.  Per frame: the
+frame's float32 RGBA (the uint8 planes for RGB inputs, which the kernel
+dequantizes; the emit K2 to float32 for YUV inputs, as tpuvf blends the
+unquantized ``yuv_to_rgb``), the rect blend and quantize K6, the output
+pack.  After a vfcompositor the overlay runs as this separate stage; tpuvf
+folds it into the composite, which for an RGB output gives the same values
+(``tpuvf/runtime/pipeline.py:541-554``).  tpuvf's split/quad/grid link
+bodies are TPU layouts and are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from tpuvf_torch.core.element import Element
+from tpuvf_torch.core.formats import CORE_FORMATS, RGB_FORMATS
+from tpuvf_torch.core.properties import PropertyDescriptor
+from tpuvf_torch.core.registry import register
+from tpuvf_torch.core.spec import FrameSpec
+from tpuvf_torch.io import png
+from tpuvf_torch.kernels import convert
+from tpuvf_torch.kernels.emit import emit
+from tpuvf_torch.kernels.overlay import overlay_blend, overlay_rect
+
+_log = logging.getLogger("tpuvf_torch.overlay")
+
+
+def load_overlay_image(path: str) -> np.ndarray:
+    """-> (H, W, 4) uint8 premultiplied RGBA from a PNG file."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return png.decode_premultiplied(data)
+    if data[:2] == b"\xff\xd8":
+        raise NotImplementedError(
+            "JPEG overlay images need the native JPEG decoder "
+            "(tpuvf/native/jpeg.py), which is not ported yet")
+    raise ValueError(f"unsupported image format in {path}")
+
+
+@register
+class Overlay(Element):
+    ELEMENT_NAME = "vfoverlay"
+    ALIASES = ("vfmetaloverlay", "overlay")
+    KLASS = "Filter/Effect/Video"
+    DESCRIPTION = "Blends a PNG image over video"
+    IN_FORMATS = CORE_FORMATS
+    OUT_FORMATS = CORE_FORMATS
+    PROPERTIES = (
+        PropertyDescriptor("location", "string", None,
+                           "Path to overlay image file (PNG or JPEG)"),
+        PropertyDescriptor("x", "int", 0, "Overlay X position in pixels",
+                           0, 2**31 - 1),
+        PropertyDescriptor("y", "int", 0, "Overlay Y position in pixels",
+                           0, 2**31 - 1),
+        PropertyDescriptor("width", "int", 0,
+                           "Overlay width in pixels (0 = original image width)",
+                           0, 2**31 - 1),
+        PropertyDescriptor("height", "int", 0,
+                           "Overlay height in pixels (0 = original image height)",
+                           0, 2**31 - 1),
+        PropertyDescriptor("alpha", "float", 1.0, "Overlay opacity",
+                           0.0, 1.0, controllable=True, traced=True),
+        PropertyDescriptor("relative-x", "float", -1.0,
+                           "X as fraction of video width (-1 = use pixel x)",
+                           -1.0, 1.0),
+        PropertyDescriptor("relative-y", "float", -1.0,
+                           "Y as fraction of video height (-1 = use pixel y)",
+                           -1.0, 1.0),
+    )
+
+    def __init__(self, *a, **k):
+        self._image = None
+        self._image_path_loaded = None
+        super().__init__(*a, **k)
+
+    # -- image lifecycle (load on property write, soft-fail, m:94-127) -----
+
+    def set_property(self, name, value):
+        super().set_property(name, value)
+        if name == "location":
+            self._reload_image()
+
+    def _reload_image(self):
+        path = self.props.get("location")
+        self._image, self._image_path_loaded = None, None
+        if not path:
+            return
+        try:
+            self._image = load_overlay_image(path)
+        except Exception as exc:  # noqa: BLE001 - any unreadable file soft-fails
+            # missing or bad file => warning + stay passthrough (m:114-127)
+            _log.warning("failed to load overlay image %s: %s", path, exc)
+            return
+        self._image_path_loaded = path
+
+    def _sync_image(self):
+        if self.props.get("location") != self._image_path_loaded:
+            self._reload_image()
+
+    def is_passthrough(self, in_spec, out_spec):
+        self._sync_image()
+        return self._image is None or in_spec.format != out_spec.format
+
+    def static_config(self, in_spec, out_spec):
+        self._sync_image()
+        shape = None if self._image is None else self._image.shape[:2]
+        return super().static_config(in_spec, out_spec) + (
+            ("image_shape", shape),)
+
+    def placement(self, spec: FrameSpec):
+        """(ox, oy, ow, oh) of the image on a frame of `spec`
+        (m:374-420)."""
+        img_h, img_w = self._image.shape[:2]
+        rel_x, rel_y = self.props.get("relative-x"), self.props.get("relative-y")
+        ox = float(rel_x * spec.width) if rel_x >= 0.0 else float(
+            self.props.get("x"))
+        oy = float(rel_y * spec.height) if rel_y >= 0.0 else float(
+            self.props.get("y"))
+        return (ox, oy, float(self.props.get("width") or img_w),
+                float(self.props.get("height") or img_h))
+
+    def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
+                     device):
+        self._sync_image()
+        w, h = in_spec.width, in_spec.height
+        rect, planes_np = overlay_rect(self._image, w, h,
+                                       *self.placement(in_spec))
+        ov = torch.from_numpy(planes_np).to(device)
+        rgb_in = in_spec.format in RGB_FORMATS
+        sampler = None if rgb_in else convert.plan_rgba_sampler(
+            in_spec, w, h, device)
+        matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
+
+        def process(planes, state, params):
+            # RGB: the uint8 planes (the kernel dequantizes them); YUV: the
+            # unquantized yuv_to_rgb, as tpuvf blends it
+            src = (planes["rgba"] if rgb_in
+                   else emit(sampler(planes), matrix_in, out_float=True))
+            out = overlay_blend(src, rect, ov, params["alpha"])
+            return convert.pack_rgba(out, out_spec.format, matrix_out), state
+
+        return process

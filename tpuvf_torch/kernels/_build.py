@@ -17,7 +17,11 @@ The kernels in the library, each with its wrapper:
 - K3 ``lut3d_trilinear_f32`` (``lut.cu``, ``kernels/lut.py``): the
   trilinear 3D-LUT lookup with its quantizing epilogue;
 - K4 ``composite_fold`` (``composite.cu``, ``kernels/composite.py``):
-  vfcompositor's per-pixel blend fold of the pad draws over the background.
+  vfcompositor's per-pixel blend fold of the pad draws over the background;
+- K5 ``deinterlace_u8`` (``deinterlace.cu``, ``kernels/deinterlace.py``):
+  vfdeinterlace's bob / weave / greedy-H field kernel on RGBA8 textures;
+- K6 ``overlay_blend_u8`` (``overlay.cu``, ``kernels/overlay.py``):
+  vfoverlay's rect blend of the premultiplied image, quantizing.
 
 `SIGNATURES` gives each exported function's ctypes argument types; a source
 that exports a function must list it there.
@@ -61,6 +65,10 @@ SIGNATURES = {
     "lut3d_trilinear_f32": [_P, _P, _I, _I, _P, _I, _P],
     # params (host FoldParams), out, stream
     "composite_fold": [_P, _P, _P],
+    # cur, prev, out, threshold, height, width, method, tff, stream
+    "deinterlace_u8": [_P] * 4 + [_I] * 4 + [_P],
+    # src, src_f32, out, height, width, ov, x0, x1, y0, y1, alpha, stream
+    "overlay_blend_u8": [_P, _I, _P, _I, _I, _P] + [_I] * 4 + [_P, _P],
 }
 
 _lib = None

@@ -78,6 +78,29 @@ def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
     return run
 
 
+def plan_texcoord_sampler(in_w: int, in_h: int, t_rows, t_cols, device,
+                          transpose: bool = False):
+    """uint8 (..., in_h, in_w) -> float32 (..., len(t_rows), len(t_cols)):
+    the plane sampled LINEAR at arbitrary per-axis texcoords (vftransform's
+    `sample.sample_matrix(src_u / src_v, size, LINEAR)`, clamp to edge),
+    rows through K1, then columns through K1b.  With `transpose` the plane is
+    transposed first (the anti-diagonal methods), so `t_rows` samples its
+    width and `t_cols` its height.  Descending texcoords (flipped axes) need
+    nothing special: each output's taps are read off its own matrix row."""
+    rows_in, cols_in = (in_w, in_h) if transpose else (in_h, in_w)
+    taps_y = make_taps(sample.plan_taps(t_rows, rows_in, LINEAR), rows_in,
+                       device)
+    taps_x = make_taps(sample.plan_taps(t_cols, cols_in, LINEAR), cols_in,
+                       device)
+
+    def run(img: torch.Tensor) -> torch.Tensor:
+        if transpose:
+            img = img.transpose(-1, -2).contiguous()
+        return resample_cols(resample_rows(dequant(img), taps_y), taps_x)
+
+    return run
+
+
 def plan_rgba_sampler(
     in_spec: FrameSpec,
     out_w: int,

@@ -49,11 +49,15 @@ def from_tpuvf(params: dict, state, device):
       ``operator`` (int32) Python ints, ``pad.<name>.alpha`` a Python float
       holding its float32 value.  Its ``__buf/bg`` background canvas is
       dropped with the other buffers (the port plans the background);
-      ``fold.*`` keys, a folded vfoverlay's parameters, raise
-      NotImplementedError until vfoverlay is ported;
+      ``fold.*`` keys, a vfoverlay folded into tpuvf's compositor, raise
+      NotImplementedError: the port runs the overlay as its own element,
+      whose ``alpha`` carries over as any float scalar does;
     - integer state (the frame counter) becomes a 0-dim int64 tensor whose
       value is the uint32 counter, which the port increments modulo 2**32;
-    - empty state (``()``) stays empty.
+    - vfdeinterlace's state: ``prev``, tpuvf's tuple of four (H, W) uint8
+      planes, becomes one (4, H, W) uint8 tensor on `device`, and
+      ``has_prev`` a Python bool;
+    - empty state (``()`` or ``{}``) stays empty.
     """
     out_params = {}
     for key, value in params.items():
@@ -62,8 +66,9 @@ def from_tpuvf(params: dict, state, device):
         arr = np.asarray(value)
         if key.startswith("fold."):
             raise NotImplementedError(
-                f"parameter {key!r}: the vfoverlay fold is not ported yet "
-                f"(ROADMAP Queue 1 item 13)")
+                f"parameter {key!r}: the port does not fold a vfoverlay into "
+                f"the compositor; it runs the overlay as its own element "
+                f"(carry that element's params instead)")
         if key.startswith("pad.") and arr.ndim == 0:
             if key.endswith(".alpha"):
                 out_params[key] = float(np.float32(arr))
@@ -84,6 +89,13 @@ def from_tpuvf(params: dict, state, device):
         out_state = {}
         for key, value in state.items():
             arr = np.asarray(value)
+            if key == "prev" and arr.dtype == np.uint8 and arr.ndim == 3:
+                out_state[key] = torch.from_numpy(
+                    np.ascontiguousarray(arr)).to(device)
+                continue
+            if key == "has_prev" and arr.ndim == 0 and arr.dtype == np.bool_:
+                out_state[key] = bool(arr)
+                continue
             if arr.ndim != 0 or arr.dtype.kind not in "ui":
                 raise NotImplementedError(
                     f"state {key!r} ({arr.dtype}{list(arr.shape)}) has no "

@@ -14,8 +14,9 @@
   from the graph's step.
 - **Step**: the built stages run over the DAG eagerly on the device.
   Per-source buffer metadata (``"__meta__"`` in a source's input dict)
-  travels with the frame and reaches an aggregator as
-  ``params["__pad_meta__"][pad]``.
+  travels with the frame; a filter element gets it as
+  ``params["__meta__"]`` (vfdeinterlace's per-buffer field order), an
+  aggregator as ``params["__pad_meta__"][pad]``.
 - **Run**: an output clock at the tail's frame rate picks, for each output
   frame, every source's latest buffer whose pts is due (repeating or
   dropping as the rates differ; the GstVideoAggregator model).  Each picked
@@ -26,7 +27,8 @@
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
 available; nothing falls back to the CPU.  One sink at most; tee and
 multi-sink, batched and live runs, controllers, navigation, overlay folds
-and tpuvf's split/quad/grid link layouts are not ported.
+(a vfoverlay after a compositor runs as its own stage) and tpuvf's
+split/quad/grid link layouts are not ported.
 """
 
 from __future__ import annotations
@@ -327,11 +329,14 @@ class Pipeline:
                         pad_inputs, state.get(e.name, ()), prm)
                 else:
                     src = value_of(ins[0].upstream)
+                    meta = src.get(META)
+                    prm = params.get(e.name, {})
+                    if meta is not None:  # the buffer's flags reach the filter
+                        prm = dict(prm, **{META: meta})
                     out, new_state[e.name] = st.process(
-                        _strip_meta(src), state.get(e.name, ()),
-                        params.get(e.name, {}))
-                    if src.get(META) is not None:
-                        out = dict(out, **{META: src[META]})  # flags travel
+                        _strip_meta(src), state.get(e.name, ()), prm)
+                    if meta is not None:
+                        out = dict(out, **{META: meta})  # flags travel
             except Exception as exc:
                 raise PipelineError(e.name, self.frames, exc) from exc
             produced[id(e)] = out
