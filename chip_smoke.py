@@ -2,6 +2,7 @@
 """Smoke check of the PyTorch/CUDA port (tpuvf_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py --host-steps   # only the chains' host-side times
 
 Phases (each prints its own lines; any failure exits 1 with no result line):
 
@@ -9,13 +10,26 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
 2. build the hand-written CUDA kernels from tpuvf_torch/csrc with nvcc (one
    nvcc per source, all started together, then one link);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, timed beside it (CUDA events, median of 20):
-   K1 (resample_rows_f32) and K1b (resample_cols_f32), bitwise;
+   paths' shapes, timed beside it (CUDA events, median of 20); at each
+   kernel's JSON shape also its device time (torch.profiler self time per
+   launch), its bound (the bytes it must move at 3.35 TB/s, or its float32
+   operations at 67 TFLOP/s, whichever is longer) and the share, and the
+   one PyTorch call that computes the same function where there is one
+   (bilinear F.interpolate for K1/K1b, F.grid_sample for K3), timed as a
+   yardstick only:
+   K1 (resample_rows_f32) and K1b (resample_cols_f32), bitwise; K1b's
+   cases print how many tiles took the shared-memory band and how many
+   the direct gather (4-byte copies at 959 -> 1918, descending texcoords,
+   masked tiles, an 8x downscale whose spans are too wide to stage);
    K2 (emit_u8/emit_f32, the fused emit) against emit_plain at 1080p and
    4K: YUV with u8 and f32 luma, RGBA u8, the letterbox border, and the
    gate sets b/c/s, b/c/s + chroma key and all seven with frame index 7,
-   bitwise (the all-gates case may differ by 1 LSB where the kernel's powf
-   and torch.pow's differ; the line says so);
+   and the sizes and views that pick its scalar path (637x479, U and V
+   planes of one stacked tensor), each line naming its path, bitwise (the
+   all-gates case may differ by 1 LSB where the kernel's powf and
+   torch.pow's differ; the line says so); at chain (b)'s RGBA shape also a
+   torch clone of the stack, what a copy that reads and writes it once
+   reaches;
    K3 (lut3d_trilinear_f32) against apply_lut_t_plain at 1080p with seeded
    non-identity 17^3, 33^3 and 64^3 tables, bitwise on the float32 output
    and on the quantizing epilogue;
@@ -63,9 +77,19 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    over the checker background, two NV12 frames through greedy-H, an NV12
    transform clockwise with crops, and a PNG overlay on NV12.
 
-The line before the last is a JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.  Matmul TF32 is switched off (the sampler
-contract is full float32), though the port runs no matmul.
+Then one [roofline] line per kernel: its device time beside the one
+measured on the kernels of commit 4d832be (BEFORE_US), its bound and
+share, its library call's device time and its launches on the main paths.
+The line before the last is a JSON object {"kernels": [...]}, each entry
+with ms and plain_ms (CUDA events), device_us, bound_us and bound_ms,
+bound_by, library_ms (null where no single PyTorch call computes the
+function) and the main paths' launches; the last line is {"ok": true,
+"device": {...}}.  Matmul TF32 is switched off (the sampler contract is
+full float32), though the port runs no matmul.
+
+With --host-steps it runs only the card and build phases and the host side
+of the main paths (`host_steps`), and prints no result line: to compare two
+checkouts, run it from the root of each in turns within one call.
 """
 
 from __future__ import annotations
@@ -134,6 +158,26 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, reps: int = 20, rounds: int = 5, sync: bool = True) -> float:
+    """Host-clock us per call of fn(): the median over `rounds` of `reps`
+    calls, the device drained before each round and, with `sync`, at its
+    end (without: the host's enqueue alone, where the device keeps up)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def counters():
     """{kernel label: its wrapper}; each wrapper counts its launches."""
     from tpuvf_torch.kernels import (composite, deinterlace, emit, lut,
@@ -181,6 +225,70 @@ def record(summary, name, err, ms=None, plain_ms=None):
         entry["ms"], entry["plain_ms"] = ms, plain_ms
 
 
+# The card's peaks for the bound (H100 SXM, NVIDIA's data sheet, at the
+# 700 W limit): HBM3 bandwidth, and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per output element, counted from each source's
+# arithmetic (2 mul + 1 add per 2-tap sample; the emit's yuv->rgb, b/c/s
+# fold, clamps and quant; the LUT's 8 corner weights and 24 products; a
+# blend per draw).  Every kernel here is far below its bytes bound in
+# operations, so the bound is the bytes bound.
+OPS_PER_ELEMENT = {"K1": 3, "K1b": 3, "K2": 60, "K3": 90, "K4": 30,
+                   "K5": 30, "K6": 20}
+# the kernels' names as torch.profiler lists them
+KERNEL_NAMES = {"K1": "resample_rows_kernel", "K1b": "resample_cols_kernel",
+                "K2": "emit_kernel", "K3": "lut3d_kernel",
+                "K4": "composite_fold_kernel", "K5": "deinterlace_kernel",
+                "K6": "overlay_blend_kernel"}
+
+
+def moved_bytes(*tensors) -> int:
+    """Bytes a function must move: each input read once, each output
+    written once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_us(label, nbytes, elements):
+    """The least time the card could take: -> (us, "bytes"/"operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    by_ops = OPS_PER_ELEMENT[label] * elements / F32_OPS_PER_S * 1e6
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                             "operations")
+
+
+def kernel_device_us(fn, label, reps: int = 20) -> float:
+    """Device time per launch of the kernel `label` in fn() (its profiler
+    self time over the launches the profiler recorded; other kernels fn
+    launches are left out)."""
+    for _ in range(3):
+        seen = [e for e in profiled(fn, reps) if KERNEL_NAMES[label] in e.key]
+        if seen:
+            return (sum(e.self_device_time_total for e in seen)
+                    / sum(e.count for e in seen))
+    fail(f"{label}: torch.profiler saw no {KERNEL_NAMES[label]}")
+
+
+def roofline(summary, label, fn, nbytes, elements, library_ms=None,
+             case=None):
+    """Device time of the kernel beside its bound.  The headline case of a
+    kernel (case None: chip_smoke's JSON line) is stored in `summary`;
+    another case prints its own before/after.  -> text."""
+    dev = kernel_device_us(fn, label)
+    bound, by = bound_us(label, nbytes, elements)
+    text = (f" | device {dev:.1f} us, bound {bound:.1f} us "
+            f"({nbytes / 1e6:.1f} MB), {bound / dev:.0%} of it")
+    if case is None:
+        summary.setdefault(label, {"max_abs_err": 0.0}).update(
+            device_us=dev, bound_us=bound, bound_by=by, library_ms=library_ms,
+            moved_mb=nbytes / 1e6)
+    elif f"{label} {case}" in BEFORE_US:
+        before = BEFORE_US[f"{label} {case}"]
+        text += (f" (before {before:.1f} us, {bound / before:.0%}, "
+                 f"{BEFORE_CALL})")
+    return text
+
+
 KERNEL_CASES = [
     # (label, wrapper, planes, rows, cols, out size, filter, scale)
     ("4K chroma rows 1080->2160", "rows", 2, 1080, 1920, 2160, "linear", 1.0),
@@ -195,7 +303,34 @@ KERNEL_CASES = [
      "linear", 0.75),
     ("nearest rows 1080->480", "rows", 1, 1080, 1920, 480, "nearest", 1.0),
     ("nearest cols 1920->640", "cols", 1, 480, 1920, 640, "nearest", 1.0),
+    # K1b's paths: 4-byte copies and scalar stores (959 and 1918 are not
+    # multiples of 4), descending texcoords, whole tiles masked, a span too
+    # wide to stage; a trailing True flips the texcoords (rotate-180)
+    ("1918-wide NV12 chroma cols 959->1918", "cols", 2, 1080, 959, 1918,
+     "linear", 1.0),
+    ("descending cols 1920->1280 (rotate-180)", "cols", 1, 720, 1920, 1280,
+     "linear", 1.0, True),
+    ("pillarbox cols 960->3840 (scale 0.25: masked tiles)", "cols", 1, 540,
+     960, 3840, "linear", 0.25),
+    ("wide-span cols 3840->480 (8x down)", "cols", 1, 1080, 3840, 480,
+     "linear", 1.0),
 ]
+
+
+def interpolate_yardstick(x, axis, out):
+    """The one PyTorch call that computes K1's (rows) or K1b's (cols)
+    half-texel clamp-to-edge 2-tap sample at scale 1: bilinear
+    F.interpolate with the other axis at its own size.  -> (fn, its
+    output)."""
+    import torch.nn.functional as F
+
+    size = ((out, x.shape[-1]) if axis == "rows" else (x.shape[-2], out))
+
+    def fn():
+        return F.interpolate(x[None], size=size, mode="bilinear",
+                             align_corners=False)[0]
+
+    return fn, fn()
 
 
 def phase_resample(summary):
@@ -206,12 +341,15 @@ def phase_resample(summary):
     from tpuvf_torch.kernels.color import dequant
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for label, axis, planes, rows, cols, out, filt, scale in KERNEL_CASES:
+    for i, (label, axis, planes, rows, cols, out, filt, scale,
+            *flip) in enumerate(KERNEL_CASES):
         in_size = rows if axis == "rows" else cols
         t = sample.texcoords(out, scale)
+        if flip:
+            t = t[::-1].copy()
         mask = sample.coverage_mask(out, scale)
-        taps = resample.make_taps(sample.plan_taps(t, in_size, filt, mask),
-                                  in_size, "cuda")
+        make = resample.make_taps if axis == "rows" else resample.make_col_taps
+        taps = make(sample.plan_taps(t, in_size, filt, mask), in_size, "cuda")
         x = dequant(torch.randint(0, 256, (planes, rows, cols), generator=gen,
                                   device="cuda", dtype=torch.uint8))
         kern = getattr(resample, f"resample_{axis}")
@@ -224,10 +362,27 @@ def phase_resample(summary):
             fail(f"K1/K1b {label}: kernel != plain version (max |diff| {err})")
         ms = cuda_ms(lambda: kern(x, taps))
         plain_ms = cuda_ms(lambda: plain(x, taps))
+        name = "K1" if axis == "rows" else "K1b"
+        extra = ""
+        if axis == "cols":
+            staged, direct = resample.col_paths(taps)
+            extra = (f" | banded (shared-memory ring) {staged} tiles, direct "
+                     f"{direct} (pitch {taps.pitch} floats)")
+        if i < 2:  # the 4K chroma shapes of chain (b): roofline + yardstick
+            lib_fn, lib_out = interpolate_yardstick(x, axis, out)
+            lib_ms = cuda_ms(lib_fn)
+            lib_us = profiled_us(lib_fn)
+            extra += roofline(summary, name, lambda: kern(x, taps),
+                              moved_bytes(x, got, *taps[:4]), got.numel(),
+                              library_ms=lib_ms)
+            summary[name]["library_device_us"] = lib_us
+            extra += (f" | F.interpolate bilinear {lib_ms * 1e3:.1f} us, "
+                      f"device {lib_us:.1f} us (max |diff| from the kernel "
+                      f"{float((lib_out - got).abs().max()):.2e})")
         print(f"[3 K1/K1b] {label} {tuple(x.shape)}->{tuple(got.shape)}: "
               f"torch.equal OK | kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us", flush=True)
-        record(summary, "K1" if axis == "rows" else "K1b", err, ms, plain_ms)
+              f"{plain_ms * 1e3:.1f} us{extra}", flush=True)
+        record(summary, name, err, ms, plain_ms)
 
 
 GATE_SETS = {
@@ -268,7 +423,30 @@ EMIT_CASES = [
      False, "all seven gates", 7, False),
     ("4K RGBA u8, all seven gates, frame 7", "rgba_u8", 2160, 3840, False,
      "all seven gates", 7, False),
+    ("4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)", "rgba_u8", 2160, 3840,
+     False, "b/c/s", 0, False),
+    # the paths of the kernel: vector where every plane starts on its
+    # 4-pixel access, scalar where one does not
+    ("1918x1080 YUV u8 luma, b/c/s", "yuv_u8", 1080, 1918, False, "b/c/s", 0,
+     False),
+    ("637x479 RGBA u8, b/c/s (odd H*W: the stacked planes are misaligned)",
+     "rgba_u8", 479, 637, False, "b/c/s", 0, False),
+    ("1917x1079 YUV u8 luma, u and v planes of one stacked (2, H, W) f32",
+     "yuv_u8_stacked", 1079, 1917, False, None, 0, False),
+    ("4K YUV u8 luma -> f32", "yuv_u8", 2160, 3840, False, None, 0, True),
+    ("4K YUV u8 luma, letterbox border, b/c/s", "yuv_u8", 2160, 3840, True,
+     "b/c/s", 0, False),
+    ("1922x1082 RGBA f32, b/c/s -> f32 (H*W % 16 == 4)", "rgba_f32", 1082,
+     1922, False, "b/c/s", 0, True),
+    ("1922x1082 RGBA u8, b/c/s (H*W % 16 == 4)", "rgba_u8", 1082, 1922,
+     False, "b/c/s", 0, False),
+    ("1922x1082 YUV u8 luma, b/c/s + chroma key -> f32", "yuv_u8", 1082,
+     1922, False, "b/c/s + chroma key", 0, True),
 ]
+# the two emits of chain (b), timed on the device beside their bound; the
+# first is the JSON line's
+EMIT_ROOFLINE = ("4K YUV u8 luma, b/c/s (chain (b))",
+                 "4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)")
 
 
 def emit_inputs(kind, h, w, gen):
@@ -285,39 +463,68 @@ def emit_inputs(kind, h, w, gen):
         return {"y": u8(h, w), "u": f32(h, w), "v": f32(h, w)}
     if kind == "yuv_f32":
         return {"y": f32(h, w), "u": f32(h, w), "v": f32(h, w)}
+    if kind == "yuv_u8_stacked":  # as convert.plan_rgba_sampler hands them
+        uv = f32(2, h, w)
+        return {"y": u8(h, w), "u": uv[0], "v": uv[1]}
     if kind == "rgba_u8":
         return {"rgba": u8(4, h, w)}
     return {"rgba": f32(4, h, w)}
 
 
-def phase_emit(summary):
-    """K2 against emit_plain; the JSON times are chain (b)'s 4K emit."""
+def emit_args(kind, h, w, border, gates_name, frame, out_float, gen):
+    """emit.emit's arguments for one EMIT_CASES row, on the card."""
     import numpy as np
     import torch
 
     from tpuvf_torch.kernels import convert, emit, filter as kfilter
 
+    src = emit_inputs(kind, h, w, gen)
+    bplan = (convert.plan_border(w, h, 1.0, 0.75, (0.1, 0.2, 0.3, 1.0),
+                                 "cuda") if border else None)
+    adjust = None
+    if gates_name:
+        values = dict(DEFAULT_PARAMS, **GATE_SETS[gates_name])
+        params = {k: torch.tensor(np.float32(v), device="cuda")
+                  for k, v in values.items()}
+        gates = {"hue": values["hue"] != 0.0,
+                 "gamma": values["gamma"] != 1.0,
+                 "sepia": values["sepia"] > 0.0,
+                 "invert": values["invert"] > 0.0,
+                 "chroma_key": values["chroma_key_enabled"] > 0.0,
+                 "vignette": values["vignette"] > 0.0,
+                 "noise": values["noise"] > 0.0}
+        adjust = emit.Adjust(
+            params, torch.tensor(frame, dtype=torch.int64, device="cuda"),
+            kfilter.plan_coords(w, h, "cuda"), gates)
+    return src, 0, bplan, adjust, out_float
+
+
+def emit_vector_path(src, out) -> bool:
+    """Whether K2's launch takes its vector path for these planes: the
+    rule the kernel's launcher applies (csrc/emit.cu `vector_path`)."""
+    import torch
+
+    from tpuvf_torch.kernels import _build
+
+    x = src.get("rgba", src.get("y"))
+    u, v = src.get("u"), src.get("v")
+    return bool(_build.load().emit_vector_path(
+        x.data_ptr(), int(x.dtype == torch.float32),
+        None if u is None else u.data_ptr(),
+        None if v is None else v.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.float32), out.shape[-2], out.shape[-1]))
+
+
+def phase_emit(summary):
+    """K2 against emit_plain; the JSON times are chain (b)'s 4K emit."""
+    import torch
+
+    from tpuvf_torch.kernels import emit
+
     gen = torch.Generator(device="cuda").manual_seed(2024)
     for label, kind, h, w, border, gates_name, frame, out_float in EMIT_CASES:
-        src = emit_inputs(kind, h, w, gen)
-        bplan = (convert.plan_border(w, h, 1.0, 0.75, (0.1, 0.2, 0.3, 1.0),
-                                     "cuda") if border else None)
-        adjust = None
-        if gates_name:
-            values = dict(DEFAULT_PARAMS, **GATE_SETS[gates_name])
-            params = {k: torch.tensor(np.float32(v), device="cuda")
-                      for k, v in values.items()}
-            gates = {"hue": values["hue"] != 0.0,
-                     "gamma": values["gamma"] != 1.0,
-                     "sepia": values["sepia"] > 0.0,
-                     "invert": values["invert"] > 0.0,
-                     "chroma_key": values["chroma_key_enabled"] > 0.0,
-                     "vignette": values["vignette"] > 0.0,
-                     "noise": values["noise"] > 0.0}
-            adjust = emit.Adjust(
-                params, torch.tensor(frame, dtype=torch.int64, device="cuda"),
-                kfilter.plan_coords(w, h, "cuda"), gates)
-        args = (src, 0, bplan, adjust, out_float)
+        args = emit_args(kind, h, w, border, gates_name, frame, out_float, gen)
+        src = args[0]
         got = emit.emit(*args)
         want = emit.emit_plain(*args)
         torch.cuda.synchronize()
@@ -332,8 +539,18 @@ def phase_emit(summary):
                 fail(f"K2 {label}: kernel != emit_plain (max |diff| {err})")
         ms = cuda_ms(lambda: emit.emit(*args))
         plain_ms = cuda_ms(lambda: emit.emit_plain(*args))
-        print(f"[3 K2] {label}: {note} | kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us", flush=True)
+        extra = ""
+        if label in EMIT_ROOFLINE:
+            extra = roofline(summary, "K2", lambda: emit.emit(*args),
+                             moved_bytes(*src.values(), got), h * w,
+                             case=None if label == EMIT_ROOFLINE[0] else label)
+        if "rgba" in src and label in EMIT_ROOFLINE:
+            # what a copy reaches: the stack read once and written once
+            extra += (f" | torch clone of the stack, device "
+                      f"{profiled_us(src['rgba'].clone):.1f} us")
+        path = "vector" if emit_vector_path(src, got) else "scalar"
+        print(f"[3 K2] {label}: {note}, {path} path | kernel {ms * 1e3:.1f} "
+              f"us, plain {plain_ms * 1e3:.1f} us{extra}", flush=True)
         record(summary, "K2", err, ms, plain_ms)
 
 
@@ -372,8 +589,8 @@ def phase_lut(summary):
         grid = torch.arange(size, device="cuda") / float(size - 1)
         x[:3, 0, :size] = grid  # exact grid points, 0 and 1
         x[:3, 1, 0], x[:3, 1, 1] = 0.0, 1.0
-        table = torch.from_numpy(
-            kfilter.pack_lut_corners(grade_cube(size, seed=size))).cuda()
+        cube = grade_cube(size, seed=size)
+        table = torch.from_numpy(kfilter.pack_lut_corners(cube)).cuda()
         for quantize in (True, False):
             got = lut.lut3d(x, table, size, quantize)
             want = lut.lut3d_plain(x, table, size, quantize)
@@ -385,33 +602,73 @@ def phase_lut(summary):
             ms = cuda_ms(lambda: lut.lut3d(x, table, size, quantize))
             plain_ms = cuda_ms(lambda: lut.lut3d_plain(x, table, size,
                                                        quantize))
+            headline = size == 33 and quantize
+            extra = ""
+            if headline:  # chain (c)'s shape: roofline + yardstick
+                lib_fn, lib_out = grid_sample_yardstick(x, cube)
+                lib_ms = cuda_ms(lib_fn)
+                lib_us = profiled_us(lib_fn)
+                extra = roofline(summary, "K3",
+                                 lambda: lut.lut3d(x, table, size, quantize),
+                                 moved_bytes(x, table, got), x[0].numel(),
+                                 library_ms=lib_ms)
+                summary["K3"]["library_device_us"] = lib_us
+                f32 = lut.lut3d(x, table, size, False)[:3]
+                extra += (f" | F.grid_sample {lib_ms * 1e3:.1f} us, device "
+                          f"{lib_us:.1f} us (max |diff| from the kernel's "
+                          f"f32 {float((lib_out - f32).abs().max()):.2e})")
             kind = "u8 epilogue" if quantize else "f32"
             print(f"[3 K3] 1080p {size}^3 table ({table.numel() * 4 / 1e6:.2f}"
                   f" MB), {kind}: torch.equal OK | kernel {ms * 1e3:.1f} us, "
-                  f"plain {plain_ms * 1e3:.1f} us", flush=True)
-            record(summary, "K3", err, ms if size == 33 and quantize else None,
-                   plain_ms)
+                  f"plain {plain_ms * 1e3:.1f} us{extra}", flush=True)
+            record(summary, "K3", err, ms if headline else None, plain_ms)
+
+
+def grid_sample_yardstick(x, cube):
+    """The one PyTorch call that computes K3's trilinear lookup: 5-D
+    F.grid_sample of the (1, 3, S, S, S) [b][g][r] table, border padding,
+    corners aligned; the grid is built here, outside the timed call.
+    -> (fn, its (3, H, W) output)."""
+    import torch
+    import torch.nn.functional as F
+
+    table = torch.from_numpy(cube).cuda().permute(3, 0, 1, 2)[None]
+    table = table.contiguous()
+    grid = (x[:3].permute(1, 2, 0) * 2.0 - 1.0)[None, None].contiguous()
+
+    def fn():
+        return F.grid_sample(table, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    return fn, fn()[0, :, 0]
+
+
+def profiled(fn, reps: int, attempts: int = 3):
+    """torch.profiler's key averages over `reps` calls of fn(); a window in
+    which the profiler recorded no device time is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        if events:
+            return events
+    fail("torch.profiler saw no device time")
 
 
 def device_breakdown(fn, reps: int = 20):
     """torch.profiler over `reps` calls of fn() -> (device us per call,
     [(kernel name, us per call)] largest first)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     per = sorted(((e.key, e.self_device_time_total / reps)
-                  for e in prof.key_averages()
-                  if e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    total = sum(us for _, us in per)
-    if total <= 0:
-        fail("torch.profiler saw no device time")
-    return total, per
+                  for e in profiled(fn, reps)), key=lambda kv: -kv[1])
+    return sum(us for _, us in per), per
 
 
 def profiled_us(fn, reps: int = 20) -> float:
@@ -484,11 +741,13 @@ def phase_composite(summary):
         plain_ms = cuda_ms(lambda: composite.composite_fold_plain(*args))
         device = ""
         if i == 0:
-            dev_us = profiled_us(lambda: composite.composite_fold(*args))
             plain_dev_us = profiled_us(
                 lambda: composite.composite_fold_plain(*args))
-            device = (f" | device (profiler) kernel {dev_us:.1f} us, plain "
-                      f"{plain_dev_us:.1f} us")
+            device = roofline(summary, "K4",
+                              lambda: composite.composite_fold(*args),
+                              moved_bytes(*(d.src for d in draws), got),
+                              h * w * len(draws))
+            device += f" | plain device {plain_dev_us:.1f} us"
         print(f"[3 K4] {label}: torch.equal OK | kernel {ms * 1e3:.1f} us, "
               f"plain {plain_ms * 1e3:.1f} us{device}", flush=True)
         record(summary, "K4", err, ms if i == 0 else None, plain_ms)
@@ -553,11 +812,12 @@ def phase_deinterlace(summary):
             ms = cuda_ms(lambda: kd.deinterlace(*args))
             plain_ms = cuda_ms(lambda: kd.deinterlace_plain(*args))
             note = f" | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
-        if timed:
-            dev_us = profiled_us(lambda: kd.deinterlace(*args))
+        if timed:  # greedy-H reads prev only on the rows it rebuilds
             plain_dev_us = profiled_us(lambda: kd.deinterlace_plain(*args))
-            note += (f" | device (profiler) kernel {dev_us:.1f} us, plain "
-                     f"{plain_dev_us:.1f} us")
+            note += roofline(summary, "K5", lambda: kd.deinterlace(*args),
+                             moved_bytes(c, got) + moved_bytes(p) // 2,
+                             c[0].numel())
+            note += f" | plain device {plain_dev_us:.1f} us"
         print(f"[3 K5] {label}: torch.equal OK{note}", flush=True)
         record(summary, "K5", err, ms if timed else None, plain_ms)
 
@@ -635,10 +895,10 @@ def phase_overlay(summary, tmp):
         plain_ms = cuda_ms(lambda: ko.overlay_blend_plain(*args))
         device = ""
         if i == 0:
-            dev_us = profiled_us(lambda: ko.overlay_blend(*args))
             plain_dev_us = profiled_us(lambda: ko.overlay_blend_plain(*args))
-            device = (f" | device (profiler) kernel {dev_us:.1f} us, plain "
-                      f"{plain_dev_us:.1f} us")
+            device = roofline(summary, "K6", lambda: ko.overlay_blend(*args),
+                              moved_bytes(src, args[2], got), src[0].numel())
+            device += f" | plain device {plain_dev_us:.1f} us"
         print(f"[3 K6] {label}, rect {rect}: torch.equal OK | kernel "
               f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us{device}",
               flush=True)
@@ -750,34 +1010,36 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
         return pipe.step_sources(inputs, state, params)
 
     step_ms = cuda_ms(step)
-    reps = 20
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        step()
-    torch.cuda.synchronize()
-    host_us = (time.perf_counter() - t0) / reps * 1e6
-    busy_us, per = device_breakdown(step, reps)
+    step_us = host_us(step)
+    busy_us, per = device_breakdown(step)
     top = ", ".join(f"{name[:40]} {us:.1f}" for name, us in per[:4])
-    pipe.frames, pipe.wall_seconds = 0, 0.0
-    pipe.run()  # warm: planned and allocated by the first run
-    fps = pipe.frames / pipe.wall_seconds
-    counts = ", ".join(f"{k} {v}" for k, v in launches.items())
+    counts = ", ".join(f"{k} {v} ({v / n:g}/frame)"
+                       for k, v in launches.items() if v)
     print(f"[4 main path] {label}: {n} frames on cuda | launches {counts} | "
           f"frame 0 vs CPU max {worst} LSB, {differ / total:.4%} differ | "
           f"device step {step_ms * 1e3:.1f} us/frame (events), "
-          f"{host_us:.1f} us (host clock), busy {busy_us:.1f} us, idle "
-          f"{max(0.0, 1.0 - busy_us / host_us):.3f} (largest, us: {top}) | "
-          f"Pipeline.run wall {fps:.2f} fps (upload + readback)", flush=True)
+          f"{step_us:.1f} us (host clock), busy {busy_us:.1f} us, idle "
+          f"{max(0.0, 1.0 - busy_us / step_us):.3f} (largest, us: {top}) | "
+          f"Pipeline.run wall {run_fps(pipe):.2f} fps (upload + readback)",
+          flush=True)
     return launches
 
 
-def phase_chains(tmp):
-    """Chains (a)-(h''); -> {kernel: launches summed over the chains}."""
+def run_fps(pipe) -> float:
+    """Pipeline.run's frames per second, upload and readback included, on
+    a pipeline that has run once (planned and allocated)."""
+    pipe.frames, pipe.wall_seconds = 0, 0.0
+    pipe.run()
+    return pipe.frames / pipe.wall_seconds
+
+
+def main_paths(tmp):
+    """Chains (a)-(h''): [(label, description, {appsrc: frames}, kernels
+    the chain must launch, opaque output, *({appsrc: [tff]},))]."""
     lut33 = write_cube(Path(tmp) / "grade33.cube", grade_cube(33, seed=3))
     lut17 = write_cube(Path(tmp) / "grade17.cube", grade_cube(17, seed=17))
     red = red_png(Path(tmp) / "config5-red.png")
-    chains = [
+    return [
         ("(a) NV12 1920x1080 -> BGRA 640x480 + b/c/s",
          f"appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale ! "
          f"video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! appsink",
@@ -844,8 +1106,12 @@ def phase_chains(tmp):
          {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=22)},
          ("K1", "K1b", "K2"), False),
     ]
+
+
+def phase_chains(tmp):
+    """Chains (a)-(h''); -> {kernel: launches summed over the chains}."""
     total = {}
-    for label, desc, frames, expect, opaque, *tffs in chains:
+    for label, desc, frames, expect, opaque, *tffs in main_paths(tmp):
         for k, v in phase_chain(label, desc, frames, expect, opaque,
                                 *tffs).items():
             total[k] = total.get(k, 0) + v
@@ -1052,9 +1318,67 @@ KERNELS = (
     ("K6", "overlay_blend_u8 (K6)", "tpuvf_torch/csrc/overlay.cu",
      "tpuvf/elements/overlay.py:595"),
 )
+# Device time (us, torch.profiler self time) of each kernel at its JSON
+# shape, and of K2 at chain (b)'s RGBA shape, before the redesigns of K2 and
+# K1b, and where it was measured: this script's phase 3 on the kernels of
+# commit 4d832be.
+BEFORE_CALL = "kernels of 4d832be, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_US = {"K1": 20.379, "K1b": 66.788, "K2": 64.127, "K3": 62.543,
+             "K4": 88.264, "K5": 13.761, "K6": 42.628,
+             "K2 4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)": 57.3}
 
 
-def main() -> int:
+def host_steps() -> int:
+    """--host-steps: the host side of the main paths alone, to compare two
+    checkouts in one call (run this script from the root of each, in
+    turns).  Per chain the step's host-clock time with the inputs on the
+    card and Pipeline.run's fps, then the host's enqueue time per call of
+    K2's and the K1/K1b sampler's wrappers at chain (a)'s shapes, where the
+    device keeps up.  No CPU run, no profiler, except one window at the end
+    to show what a profiler session does to the host step after it."""
+    import torch
+
+    from tpuvf_torch.kernels import convert, emit, sample
+
+    phase_card()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = main_paths(tmp)
+        for label, desc, feeds, _, _, *tffs in paths:
+            pipe = fed_pipeline(desc, feeds, "cuda", *tffs)
+            pipe.run()
+            inputs = pipe.upload_sources({k: v[0] for k, v in feeds.items()})
+            params, state = pipe.params(), pipe.state
+
+            def step(pipe=pipe, inputs=inputs, state=state, params=params):
+                return pipe.step_sources(inputs, state, params)
+
+            print(f"[host] {label}: step {host_us(step):.1f} us (host clock, "
+                  f"median of 5 x 20) | Pipeline.run {run_fps(pipe):.2f} fps",
+                  flush=True)
+            if label.startswith("(a)"):
+                first = step
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    enqueue = [(f"K2 enqueue, 640x480 {kind} b/c/s", emit.emit,
+                emit_args(kind, 480, 640, False, "b/c/s", 0, False, gen))
+               for kind in ("yuv_f32", "rgba_u8")]
+    luma = torch.randint(0, 256, (1080, 1920), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    enqueue.append(("K1 + K1b enqueue, luma 1920x1080 -> 640x480",
+                    convert.plan_plane_sampler(1920, 1080, 640, 480,
+                                               sample.LINEAR, 1.0, 1.0,
+                                               "cuda"), (luma,)))
+    for label, fn, args in enqueue:
+        us = host_us(lambda: fn(*args), 200, sync=False)
+        print(f"[host] {label}: {us:.1f} us a call", flush=True)
+    before = host_us(first)
+    device_breakdown(first)
+    print(f"[host] (a) step {before:.1f} us, after one torch.profiler window "
+          f"{host_us(first):.1f} us", flush=True)
+    return 0
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1063,6 +1387,10 @@ def main() -> int:
         import tpuvf_torch  # noqa: F401
     except ImportError as exc:
         fail(f"run from the root of a tpuvf checkout ({exc})")
+    if argv == ["--host-steps"]:
+        return host_steps()
+    if argv:
+        fail(f"unknown arguments {argv} (none, or --host-steps)")
     t0 = time.perf_counter()
     phase_card()
     phase_build()
@@ -1076,12 +1404,28 @@ def main() -> int:
         phase_overlay(summary, tmp)
         launches = phase_chains(tmp)
         phase_oracle(tmp)
-    kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[label],
-                "max_abs_err": summary[label]["max_abs_err"],
-                "ms": summary[label]["ms"],
-                "plain_ms": summary[label]["plain_ms"]}
-               for label, name, source, replaces in KERNELS]
+    kernels = []
+    for label, name, source, replaces in KERNELS:
+        s = summary[label]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[label],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_us"] / 1e3,
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "device_us": s["device_us"], "bound_us": s["bound_us"]})
+        before = BEFORE_US.get(label)
+        was = (f"before {before:.1f} us ({BEFORE_CALL}), "
+               f"{s['bound_us'] / before:.0%} of the bound -> "
+               if before else "")
+        lib = s.get("library_device_us")
+        print(f"[roofline] {label} {name}: {was}device {s['device_us']:.1f} "
+              f"us, bound {s['bound_us']:.1f} us ({s['moved_mb']:.1f} MB "
+              f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"{s['bound_us'] / s['device_us']:.0%} of the bound | "
+              f"library call: "
+              + (f"{lib:.1f} us device" if lib else "none")
+              + f" | main-path launches {launches[label]}", flush=True)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -1093,7 +1437,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception:  # noqa: BLE001 - any failure must exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAIL: unexpected error (traceback above)",

@@ -23,9 +23,9 @@ torch.set_num_threads(1)
 TOL = 1e-6
 
 
-def _taps(t, in_size, filter=sample.LINEAR, mask=None):
-    return resample.make_taps(sample.plan_taps(t, in_size, filter, mask),
-                              in_size, "cpu")
+def _taps(t, in_size, filter=sample.LINEAR, mask=None,
+          make=resample.make_taps):
+    return make(sample.plan_taps(t, in_size, filter, mask), in_size, "cpu")
 
 
 def _rows(img, t, in_size, filter=sample.LINEAR, mask=None):
@@ -34,7 +34,7 @@ def _rows(img, t, in_size, filter=sample.LINEAR, mask=None):
 
 
 def _cols(img, t, in_size, filter=sample.LINEAR, mask=None):
-    taps = _taps(t, in_size, filter, mask)
+    taps = _taps(t, in_size, filter, mask, resample.make_col_taps)
     return resample.resample_cols(torch.from_numpy(img), taps).numpy()
 
 
@@ -139,8 +139,11 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
     assert resample.resample_rows(x, taps).shape == (8, 4)
     with pytest.raises(TypeError):
         resample.resample_rows(x.double(), taps)
-    with pytest.raises(ValueError):
-        resample.resample_cols(x, taps)  # 4 columns, taps expect 16
+    with pytest.raises(ValueError):  # 4 columns, taps expect 16
+        resample.resample_cols(x, _taps(tsample.texcoords(8), 16,
+                                        make=resample.make_col_taps))
+    with pytest.raises(ValueError):  # row taps carry no band plan
+        resample.resample_cols(torch.zeros(4, 16), taps)
     with pytest.raises(ValueError):
         resample.make_taps(sample.plan_taps(tsample.texcoords(8), 16), 12,
                            "cpu")

@@ -5,8 +5,8 @@
 // :167, k7 :155), whose product is the emit that XLA fuses on the TPU:
 // tpuvf/kernels/color.py::yuv_to_rgb (:116) -> the letterbox border ->
 // tpuvf/kernels/filter.py::apply_color_adjustments_t (:122) -> quantize ->
-// pack (tpuvf/kernels/convert.py::pack_rgba_t, :2651).  One thread per
-// output pixel computes, from planes already at the output grid:
+// pack (tpuvf/kernels/convert.py::pack_rgba_t, :2651).  Each output pixel
+// gets, from planes already at the output grid:
 //
 //   1. dequant (x * f32(1/255)) of a uint8 source (emit_u8; emit_f32 takes
 //      the float32 planes the K1/K1b sampler wrote);
@@ -22,12 +22,36 @@
 // The plain version is tpuvf_torch.kernels.emit.emit_plain, which composes
 // the port's torch functions op for op.
 //
-// What bounds it: memory.  At identity geometry it reads 1.5 (NV12) or 4
-// (RGBA) bytes a pixel and writes 4 (u8) or 16 (f32) bytes a pixel; the
-// adjustment chain is a few dozen float ops a pixel, far below the card's
-// rate.  The plain version is ~40 elementwise launches, each a full
-// read-modify-write of float32 planes; fusing them is the whole design.
-// One thread per pixel along the width, rows walked by a grid-stride loop.
+// What bounds it: memory, and close behind it the instruction issue.  A 4K
+// NV12 emit (u8 luma, f32 U and V at the output grid, u8 RGBA out) moves
+// 8.3 + 66.4 + 33.2 MB, 32.2 us at 3.35 TB/s; a 4K RGBA8 b/c/s emit 33.2 +
+// 33.2 MB, 19.8 us, beside which chip_smoke.py times a torch clone of the
+// same stack (read once, write once) as what a copy reaches.  The b/c/s
+// chain, the clamps and the quantization add enough instructions a pixel
+// that issue, not only bytes, holds it back.
+// The first design (one pixel a thread, byte-wide loads and stores, the
+// per-frame scalars re-read for every pixel) reached 64.1 and 57.3 us: 50%
+// and 35% of those bounds.
+//
+// The design: the planes are walked as flat pixel arrays, each thread
+// taking kVec = 4 consecutive pixels of every plane per trip of a
+// grid-stride loop (the grid is the card's resident blocks): one 4-byte load
+// per uint8 plane, one float4 per float32 plane, one 4-byte store per uint8
+// output plane (a warp's access is 128 or 512 contiguous bytes).  The
+// per-frame scalars are read once per thread; the adjustment chain runs
+// stage by stage over the 4 pixels, so each stage's uniform test is taken
+// once per 4 pixels, and the pixel position is computed only when a stage
+// reads it (the border, vignette, grain); clamps are max.NaN / min.NaN.
+// Wider vectors (8 or 16 pixels, two vectors in flight) cost registers and
+// occupancy and were slower on the card (PERF.md).
+// Measured, NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py): 40.2 us for the
+// 4K NV12 emit (80% of its bound), 31.6 us for the RGBA8 one (63%).
+// A launch whose planes do not all start on their access's boundary (an
+// H*W that is not a multiple of 4, V as a view into a stacked (2, H, W)
+// chroma tensor) takes the scalar path, one pixel a thread; the launch
+// decides from the pointers and H*W (`vector_path`).  The plain version is
+// ~40 elementwise launches, each a full read-modify-write of float32
+// planes.
 //
 // Where bitwise parity with the plain version breaks first, and what this
 // source does about each:
@@ -41,7 +65,8 @@
 //     reciprocal(gamma), i.e. __fdiv_rn(1, gamma);
 //   - the vignette smoothstep divides by the Python scalar 0.5, which torch
 //     on the card turns into a multiply by 2: both are exact;
-//   - rounding in quant: rintf (half to even, as torch.round), not roundf;
+//   - rounding in quant: half to even (__float2uint_rn, as torch.round),
+//     not half away from zero;
 //   - hash12's fract is x - floorf(x), as filter._fract;
 //   - powf for gamma: torch.pow on the card calls the same powf from CUDA's
 //     math library, so equality holds when both were built from one libdevice;
@@ -57,8 +82,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxGridY = 65535;
+constexpr int kThreads = 128;
 
 // Slots of the per-frame scalar vector (kernels/emit.py PARAM_KEYS, then
 // coords["two_pi"]).
@@ -105,9 +129,13 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
-// torch.clamp: NaN passes through.
+// torch.clamp: NaN passes through (max.NaN and min.NaN return NaN when an
+// operand is NaN; otherwise they are max and min).
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(lo));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(hi));
+  return r;
 }
 __device__ __forceinline__ float clamp01(float x) { return clampf(x, 0.0f, 1.0f); }
 
@@ -118,8 +146,9 @@ __device__ __forceinline__ float smooth_tail(float t) {
   return mul(mul(t, t), sub(3.0f, mul(2.0f, t)));
 }
 
+// rounding half to even, as torch.round: one cvt.rni of the clamped value
 __device__ __forceinline__ uint8_t quant(float x) {
-  return static_cast<uint8_t>(rintf(mul(clamp01(x), 255.0f)));
+  return static_cast<uint8_t>(__float2uint_rn(mul(clamp01(x), 255.0f)));
 }
 
 __device__ __forceinline__ float dequant(uint8_t v) {
@@ -190,7 +219,6 @@ struct EmitArgs {
   const T* src;  // (4, H, W) RGBA planes, or the (H, W) luma plane
   const float* u;
   const float* v;
-  int is_rgba;
   void* out;  // (4, H, W) uint8, or float32 when out_f32
   int out_f32;
   int height;
@@ -208,146 +236,422 @@ struct EmitArgs {
   int gates;  // Gate bits, or -1: no adjustment chain
 };
 
-// filter.apply_color_adjustments_t on one pixel.
+// The adjustment chain's per-frame values, read from device memory once per
+// thread, each computed as the plain version computes it.  A stage is on
+// when its static gate bit is set and its uniform test passes.
+struct Uniforms {
+  float cs, m, k0;  // the b/c/s fold
+  bool hue;
+  float hue_shift;  // hue / two_pi
+  bool gamma;
+  float inv_gamma;
+  bool sepia;
+  float sepia_amount;
+  bool invert;
+  bool chroma_key;
+  float key[3], e0, e_span;  // key colour; tolerance; e1 - e0
+  bool vignette;
+  float vignette_amount;
+  bool noise;
+  float noise_amount, fi;  // noise; frame index * kFrameScale
+  bool clip;  // sepia or grain keep the final clip
+  bool after_floor;  // any stage after the gamma floor is on
+  bool xy;  // a stage reads the pixel's position (vignette, grain)
+};
+
 template <typename T>
-__device__ __forceinline__ void adjust(const EmitArgs<T>& a, int x, int y,
-                                       float& r, float& g, float& b,
-                                       float& alpha) {
+__device__ Uniforms load_uniforms(const EmitArgs<T>& a) {
+  Uniforms u{};
   const float* p = a.params;
   const int gates = a.gates;
-
-  // brightness -> contrast -> saturation folded into one affine
   const float c = __ldg(p + kContrast);
   const float s = __ldg(p + kSaturation);
-  const float cs = mul(c, s);
-  const float m = mul(sub(1.0f, s), c);
-  const float k0 = add(mul(sub(__ldg(p + kBrightness), 0.5f), c), 0.5f);
-  const float lum0 = add(add(mul(kLuma[0], r), mul(kLuma[1], g)),
-                         mul(kLuma[2], b));
-  const float base = add(mul(m, lum0), k0);
-  r = add(mul(cs, r), base);
-  g = add(mul(cs, g), base);
-  b = add(mul(cs, b), base);
-
-  if ((gates & kGateHue) && fabsf(__ldg(p + kHue)) > kUniformEps) {
-    float h, hs, hv;
-    rgb_to_hsv(clamp01(r), clamp01(g), clamp01(b), h, hs, hv);
-    h = fract(add(h, __fdiv_rn(__ldg(p + kHue), __ldg(p + kTwoPi))));
-    r = hsv_channel(h, hs, hv, 1.0f);
-    g = hsv_channel(h, hs, hv, kTwoThirds);
-    b = hsv_channel(h, hs, hv, kThird);
+  u.cs = mul(c, s);
+  u.m = mul(sub(1.0f, s), c);
+  u.k0 = add(mul(sub(__ldg(p + kBrightness), 0.5f), c), 0.5f);
+  u.hue = (gates & kGateHue) && fabsf(__ldg(p + kHue)) > kUniformEps;
+  if (u.hue) u.hue_shift = __fdiv_rn(__ldg(p + kHue), __ldg(p + kTwoPi));
+  u.gamma = (gates & kGateGamma) != 0;
+  if (u.gamma) u.inv_gamma = __fdiv_rn(1.0f, __ldg(p + kGamma));
+  u.sepia_amount = __ldg(p + kSepia);
+  u.sepia = (gates & kGateSepia) && u.sepia_amount > kUniformEps;
+  u.invert = (gates & kGateInvert) && __ldg(p + kInvert) > 0.5f;
+  u.chroma_key =
+      (gates & kGateChromaKey) && __ldg(p + kChromaKeyEnabled) > 0.5f;
+  if (u.chroma_key) {
+    u.key[0] = __ldg(p + kKeyR);
+    u.key[1] = __ldg(p + kKeyG);
+    u.key[2] = __ldg(p + kKeyB);
+    u.e0 = __ldg(p + kKeyTolerance);
+    u.e_span = sub(add(u.e0, __ldg(p + kKeySmoothness)), u.e0);
   }
+  u.vignette_amount = __ldg(p + kVignette);
+  u.vignette = (gates & kGateVignette) && u.vignette_amount > kUniformEps;
+  u.noise_amount = __ldg(p + kNoise);
+  u.noise = (gates & kGateNoise) && u.noise_amount > kUniformEps;
+  if (u.noise) u.fi = mul(__ll2float_rn(__ldg(a.frame_index)), kFrameScale);
+  u.clip = (gates & (kGateSepia | kGateNoise)) != 0;
+  u.after_floor = u.gamma || u.sepia || u.invert || u.chroma_key ||
+                  u.vignette || u.noise || u.clip;
+  u.xy = u.vignette || u.noise;
+  return u;
+}
 
-  r = clampf(r, kGammaFloor, 1.0f);
-  g = clampf(g, kGammaFloor, 1.0f);
-  b = clampf(b, kGammaFloor, 1.0f);
-  if (gates & kGateGamma) {
-    const float inv_gamma = __fdiv_rn(1.0f, __ldg(p + kGamma));
-    r = powf(r, inv_gamma);
-    g = powf(g, inv_gamma);
-    b = powf(b, inv_gamma);
-  }
-
-  if ((gates & kGateSepia) && __ldg(p + kSepia) > kUniformEps) {
-    const float sep = __ldg(p + kSepia);
-    float sc[3];
+// filter.apply_color_adjustments_t on N pixels, stage by stage: each
+// stage's uniform test is taken once for the N pixels.
+template <typename T, int N>
+__device__ __forceinline__ void adjust(const EmitArgs<T>& a, const Uniforms& u,
+                                       const int (&x)[N], const int (&y)[N],
+                                       float (&r)[N], float (&g)[N],
+                                       float (&b)[N], float (&alpha)[N]) {
+  // brightness -> contrast -> saturation folded into one affine
 #pragma unroll
-    for (int row = 0; row < 3; ++row) {
-      sc[row] = add(add(mul(kSepiaM[row][0], r), mul(kSepiaM[row][1], g)),
-                    mul(kSepiaM[row][2], b));
+  for (int k = 0; k < N; ++k) {
+    const float lum0 = add(add(mul(kLuma[0], r[k]), mul(kLuma[1], g[k])),
+                           mul(kLuma[2], b[k]));
+    const float base = add(mul(u.m, lum0), u.k0);
+    r[k] = add(mul(u.cs, r[k]), base);
+    g[k] = add(mul(u.cs, g[k]), base);
+    b[k] = add(mul(u.cs, b[k]), base);
+  }
+
+  if (u.hue) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float h, hs, hv;
+      rgb_to_hsv(clamp01(r[k]), clamp01(g[k]), clamp01(b[k]), h, hs, hv);
+      h = fract(add(h, u.hue_shift));
+      r[k] = hsv_channel(h, hs, hv, 1.0f);
+      g[k] = hsv_channel(h, hs, hv, kTwoThirds);
+      b[k] = hsv_channel(h, hs, hv, kThird);
     }
-    r = add(r, mul(sub(sc[0], r), sep));
-    g = add(g, mul(sub(sc[1], g), sep));
-    b = add(b, mul(sub(sc[2], b), sep));
   }
 
-  if ((gates & kGateInvert) && __ldg(p + kInvert) > 0.5f) {
-    r = sub(1.0f, r);
-    g = sub(1.0f, g);
-    b = sub(1.0f, b);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    r[k] = clampf(r[k], kGammaFloor, 1.0f);
+    g[k] = clampf(g[k], kGammaFloor, 1.0f);
+    b[k] = clampf(b[k], kGammaFloor, 1.0f);
+  }
+  if (!u.after_floor) return;  // b/c/s (and hue) only
+
+  if (u.gamma) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      r[k] = powf(r[k], u.inv_gamma);
+      g[k] = powf(g[k], u.inv_gamma);
+      b[k] = powf(b[k], u.inv_gamma);
+    }
   }
 
-  if ((gates & kGateChromaKey) && __ldg(p + kChromaKeyEnabled) > 0.5f) {
-    const float dr = sub(r, __ldg(p + kKeyR));
-    const float dg = sub(g, __ldg(p + kKeyG));
-    const float db = sub(b, __ldg(p + kKeyB));
-    const float dist = __fsqrt_rn(add(add(mul(dr, dr), mul(dg, dg)), mul(db, db)));
-    const float e0 = __ldg(p + kKeyTolerance);
-    const float e1 = add(e0, __ldg(p + kKeySmoothness));
-    const float t = clamp01(__fdiv_rn(sub(dist, e0), sub(e1, e0)));
-    alpha = mul(alpha, smooth_tail(t));
+  if (u.sepia) {
+    const float sep = u.sepia_amount;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float sc[3];
+#pragma unroll
+      for (int row = 0; row < 3; ++row) {
+        sc[row] = add(add(mul(kSepiaM[row][0], r[k]),
+                          mul(kSepiaM[row][1], g[k])),
+                      mul(kSepiaM[row][2], b[k]));
+      }
+      r[k] = add(r[k], mul(sub(sc[0], r[k]), sep));
+      g[k] = add(g[k], mul(sub(sc[1], g[k]), sep));
+      b[k] = add(b[k], mul(sub(sc[2], b[k]), sep));
+    }
   }
 
-  if ((gates & kGateVignette) && __ldg(p + kVignette) > kUniformEps) {
-    const float cx = sub(__ldg(a.tx + x), 0.5f);
-    const float cy = sub(__ldg(a.ty + y), 0.5f);
-    const float vdist = mul(__fsqrt_rn(add(mul(cx, cx), mul(cy, cy))),
-                            kVignetteScale);
-    const float t = clamp01(mul(sub(vdist, 0.5f), 2.0f));
-    const float vig = sub(1.0f, mul(smooth_tail(t), __ldg(p + kVignette)));
-    r = mul(r, vig);
-    g = mul(g, vig);
-    b = mul(b, vig);
+  if (u.invert) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      r[k] = sub(1.0f, r[k]);
+      g[k] = sub(1.0f, g[k]);
+      b[k] = sub(1.0f, b[k]);
+    }
   }
 
-  if ((gates & kGateNoise) && __ldg(p + kNoise) > kUniformEps) {
-    const float fi = mul(__ll2float_rn(__ldg(a.frame_index)), kFrameScale);
-    float n = hash12(__ldg(a.px + x), __ldg(a.py + y), fi);
-    n = mul(mul(sub(n, 0.5f), __ldg(p + kNoise)), 0.5f);
-    r = add(r, n);
-    g = add(g, n);
-    b = add(b, n);
+  if (u.chroma_key) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float dr = sub(r[k], u.key[0]);
+      const float dg = sub(g[k], u.key[1]);
+      const float db = sub(b[k], u.key[2]);
+      const float dist =
+          __fsqrt_rn(add(add(mul(dr, dr), mul(dg, dg)), mul(db, db)));
+      const float t = clamp01(__fdiv_rn(sub(dist, u.e0), u.e_span));
+      alpha[k] = mul(alpha[k], smooth_tail(t));
+    }
+  }
+
+  if (u.vignette) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float cx = sub(__ldg(a.tx + x[k]), 0.5f);
+      const float cy = sub(__ldg(a.ty + y[k]), 0.5f);
+      const float vdist = mul(__fsqrt_rn(add(mul(cx, cx), mul(cy, cy))),
+                              kVignetteScale);
+      const float t = clamp01(mul(sub(vdist, 0.5f), 2.0f));
+      const float vig = sub(1.0f, mul(smooth_tail(t), u.vignette_amount));
+      r[k] = mul(r[k], vig);
+      g[k] = mul(g[k], vig);
+      b[k] = mul(b[k], vig);
+    }
+  }
+
+  if (u.noise) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float n = hash12(__ldg(a.px + x[k]), __ldg(a.py + y[k]), u.fi);
+      n = mul(mul(sub(n, 0.5f), u.noise_amount), 0.5f);
+      r[k] = add(r[k], n);
+      g[k] = add(g[k], n);
+      b[k] = add(b[k], n);
+    }
   }
 
   // sepia's rows sum past 1 and grain adds +-noise/4: only those gates keep
   // the final clip (filter.py elides it otherwise)
-  if (gates & (kGateSepia | kGateNoise)) {
-    r = clamp01(r);
-    g = clamp01(g);
-    b = clamp01(b);
+  if (u.clip) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      r[k] = clamp01(r[k]);
+      g[k] = clamp01(g[k]);
+      b[k] = clamp01(b[k]);
+    }
   }
 }
 
-template <typename T>
-__global__ void emit_kernel(const EmitArgs<T> a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= a.width) return;
-  const size_t plane = static_cast<size_t>(a.height) * a.width;
-  for (int y = blockIdx.y; y < a.height; y += gridDim.y) {
-    const size_t i = static_cast<size_t>(y) * a.width + x;
-    float r, g, b, alpha;
-    if (a.is_rgba) {
-      r = load(a.src, i);
-      g = load(a.src, plane + i);
-      b = load(a.src, 2 * plane + i);
-      alpha = load(a.src, 3 * plane + i);
-    } else {
-      yuv_to_rgb(load(a.src, i), __ldg(a.u + i), __ldg(a.v + i),
-                 a.matrix_index, r, g, b);
-      alpha = 1.0f;
-    }
-    if (a.border_rows != nullptr &&
-        !(__ldg(a.border_rows + y) && __ldg(a.border_cols + x))) {
-      r = a.border[0];
-      g = a.border[1];
-      b = a.border[2];
-      alpha = a.border[3];
-    }
-    if (a.gates >= 0) adjust(a, x, y, r, g, b, alpha);
-    if (a.out_f32) {
-      float* o = static_cast<float*>(a.out);
-      o[i] = r;
-      o[plane + i] = g;
-      o[2 * plane + i] = b;
-      o[3 * plane + i] = alpha;
-    } else {
-      uint8_t* o = static_cast<uint8_t*>(a.out);
-      o[i] = quant(r);
-      o[plane + i] = quant(g);
-      o[2 * plane + i] = quant(b);
-      o[3 * plane + i] = quant(alpha);
+// Everything after the source values, on N pixels at (x[k], y[k]): the
+// border, then the adjustments.
+template <typename T, int N>
+__device__ __forceinline__ void shade(const EmitArgs<T>& a, const Uniforms& u,
+                                      const int (&x)[N], const int (&y)[N],
+                                      float (&r)[N], float (&g)[N],
+                                      float (&b)[N], float (&alpha)[N]) {
+  if (a.border_rows != nullptr) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (!(__ldg(a.border_rows + y[k]) && __ldg(a.border_cols + x[k]))) {
+        r[k] = a.border[0];
+        g[k] = a.border[1];
+        b[k] = a.border[2];
+        alpha[k] = a.border[3];
+      }
     }
   }
+  if (a.gates >= 0) adjust(a, u, x, y, r, g, b, alpha);
+}
+
+// One pixel, scalar loads and stores: the scalar path.
+template <typename T, bool kRgba>
+__device__ __forceinline__ void emit_pixel(const EmitArgs<T>& a,
+                                           const Uniforms& u, size_t plane,
+                                           size_t i) {
+  const int y[1] = {static_cast<int>(i) / a.width};
+  const int x[1] = {static_cast<int>(i) - y[0] * a.width};
+  float r[1], g[1], b[1], alpha[1];
+  if (kRgba) {
+    r[0] = load(a.src, i);
+    g[0] = load(a.src, plane + i);
+    b[0] = load(a.src, 2 * plane + i);
+    alpha[0] = load(a.src, 3 * plane + i);
+  } else {
+    yuv_to_rgb(load(a.src, i), __ldg(a.u + i), __ldg(a.v + i), a.matrix_index,
+               r[0], g[0], b[0]);
+    alpha[0] = 1.0f;
+  }
+  shade(a, u, x, y, r, g, b, alpha);
+  if (a.out_f32) {
+    float* o = static_cast<float*>(a.out);
+    o[i] = r[0];
+    o[plane + i] = g[0];
+    o[2 * plane + i] = b[0];
+    o[3 * plane + i] = alpha[0];
+  } else {
+    uint8_t* o = static_cast<uint8_t*>(a.out);
+    o[i] = quant(r[0]);
+    o[plane + i] = quant(g[0]);
+    o[2 * plane + i] = quant(b[0]);
+    o[3 * plane + i] = quant(alpha[0]);
+  }
+}
+
+// -- the vector path: kVec consecutive pixels of every plane a thread -------
+
+constexpr int kVec = 4;
+
+// kVec pixels of one plane in registers: one 4-byte word of uint8 pixels, or
+// one float4.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<uint8_t> {
+  uint32_t w;
+  __device__ __forceinline__ void load(const uint8_t* p, size_t vec) {
+    w = __ldg(reinterpret_cast<const unsigned int*>(p) + vec);
+  }
+  __device__ __forceinline__ void get(float (&f)[kVec]) const {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      f[k] = dequant(static_cast<uint8_t>(w >> (8 * k)));
+    }
+  }
+};
+
+template <>
+struct Vec<float> {
+  float4 q;
+  __device__ __forceinline__ void load(const float* p, size_t vec) {
+    q = __ldg(reinterpret_cast<const float4*>(p) + vec);
+  }
+  __device__ __forceinline__ void get(float (&f)[kVec]) const {
+    f[0] = q.x;
+    f[1] = q.y;
+    f[2] = q.z;
+    f[3] = q.w;
+  }
+};
+
+// One vector's source planes: the RGBA stack, or luma + float32 chroma.
+template <typename T, bool kRgba>
+struct Source {
+  Vec<T> s[kRgba ? 4 : 1];
+  Vec<float> u, v;
+
+  __device__ __forceinline__ void load(const EmitArgs<T>& a, size_t plane,
+                                       size_t vec) {
+    if constexpr (kRgba) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c].load(a.src + c * plane, vec);
+    } else {
+      s[0].load(a.src, vec);
+      u.load(a.u, vec);
+      v.load(a.v, vec);
+    }
+  }
+
+  // px[channel][pixel]: r, g, b, alpha of the vector's pixels
+  __device__ __forceinline__ void get(const EmitArgs<T>& a,
+                                      float (&px)[4][kVec]) const {
+    if constexpr (kRgba) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c].get(px[c]);
+    } else {
+      float y4[kVec], u4[kVec], v4[kVec];
+      s[0].get(y4);
+      u.get(u4);
+      v.get(v4);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        yuv_to_rgb(y4[k], u4[k], v4[k], a.matrix_index, px[0][k], px[1][k],
+                   px[2][k]);
+        px[3][k] = 1.0f;
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t pack4(const float (&c)[kVec]) {
+  return static_cast<uint32_t>(quant(c[0])) |
+         static_cast<uint32_t>(quant(c[1])) << 8 |
+         static_cast<uint32_t>(quant(c[2])) << 16 |
+         static_cast<uint32_t>(quant(c[3])) << 24;
+}
+
+// Load, shade and store the vector `vec` (pixels kVec*vec ..): one 4-byte
+// word per uint8 output plane, one float4 per float32 one.
+template <typename T, bool kRgba>
+__device__ __forceinline__ void emit_vec(const EmitArgs<T>& a,
+                                         const Uniforms& u, size_t plane,
+                                         size_t vec) {
+  Source<T, kRgba> s;
+  s.load(a, plane, vec);
+  float px[4][kVec];
+  s.get(a, px);
+  int x[kVec] = {}, y[kVec] = {};
+  if (a.border_rows != nullptr || u.xy) {
+    const int i0 = static_cast<int>(vec) * kVec;  // H*W < 2^31 (launch_emit)
+    y[0] = i0 / a.width;
+    x[0] = i0 - y[0] * a.width;
+#pragma unroll
+    for (int k = 1; k < kVec; ++k) {
+      const bool wrap = x[k - 1] + 1 == a.width;
+      x[k] = wrap ? 0 : x[k - 1] + 1;
+      y[k] = wrap ? y[k - 1] + 1 : y[k - 1];
+    }
+  }
+  shade(a, u, x, y, px[0], px[1], px[2], px[3]);
+  if (a.out_f32) {
+    float4* o = static_cast<float4*>(a.out) + vec;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      o[c * plane / kVec] = make_float4(px[c][0], px[c][1], px[c][2], px[c][3]);
+    }
+  } else {
+    uint32_t* o = static_cast<uint32_t*>(a.out) + vec;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c * plane / kVec] = pack4(px[c]);
+  }
+}
+
+// The vector path reads and writes kVec pixels of a plane in one access (4
+// bytes of uint8, 16 of float32), so every plane must start on that
+// access's boundary: each base pointer, and in a (4, H, W) stack (the
+// output, an RGBA source) each plane, H*W pixels after the last, which
+// takes H*W % kVec == 0 (and leaves no ragged tail).  A V plane that is a
+// view into one stacked (2, H, W) chroma tensor (convert.plan_rgba_sampler)
+// starts H*W floats after U, off 16 bytes when H*W % 4 != 0.
+bool on(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+bool vector_path(const void* src, size_t src_item, const float* u,
+                 const float* v, const void* out, size_t out_item,
+                 long long plane) {
+  return plane % kVec == 0 && on(src, kVec * src_item) &&
+         (u == nullptr || on(u, sizeof(float4))) &&
+         (v == nullptr || on(v, sizeof(float4))) && on(out, kVec * out_item);
+}
+
+// kVector: the frame goes as kVec-pixel vectors, else one pixel a thread;
+// either way in a grid-stride loop.
+template <typename T, bool kRgba, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(const EmitArgs<T> a) {
+  const Uniforms u = a.gates >= 0 ? load_uniforms(a) : Uniforms{};
+  const size_t plane = static_cast<size_t>(a.height) * a.width;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVector) {
+    for (size_t vec = tid; vec < plane / kVec; vec += stride) {
+      emit_vec<T, kRgba>(a, u, plane, vec);
+    }
+  } else {
+    for (size_t i = tid; i < plane; i += stride) {
+      emit_pixel<T, kRgba>(a, u, plane, i);
+    }
+  }
+}
+
+// The grid: enough blocks for one trip of the loop over the frame, at most
+// the blocks the card holds resident at once (asked once per kernel).
+template <typename T, bool kRgba, bool kVector>
+void launch(const EmitArgs<T>& a, cudaStream_t stream) {
+  static int resident = 0;
+  const auto kernel = emit_kernel<T, kRgba, kVector>;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long plane = static_cast<long long>(a.height) * a.width;
+  const long long items = kVector ? plane / kVec : plane;
+  const long long needed = (items + kThreads - 1) / kThreads;
+  kernel<<<static_cast<int>(needed < resident ? needed : resident), kThreads,
+           0, stream>>>(a);
 }
 
 template <typename T>
@@ -370,13 +674,20 @@ int launch_emit(const void* src, const float* u, const float* v, int is_rgba,
       bad_border || bad_adjust) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const EmitArgs<T> a{static_cast<const T*>(src), u, v, is_rgba, out, out_f32,
+  const EmitArgs<T> a{static_cast<const T*>(src), u, v, out, out_f32,
                       height, width, matrix_index, border_rows, border_cols,
                       {br, bg, bb, ba}, params, frame_index, tx, ty, px, py,
                       gates};
-  const dim3 grid((width + kThreads - 1) / kThreads,
-                  height < kMaxGridY ? height : kMaxGridY);
-  emit_kernel<T><<<grid, kThreads, 0, stream>>>(a);
+  const bool vector =
+      vector_path(src, sizeof(T), is_rgba ? nullptr : u, is_rgba ? nullptr : v,
+                  out, out_f32 ? sizeof(float) : sizeof(uint8_t),
+                  static_cast<long long>(height) * width);
+  if (is_rgba) {
+    vector ? launch<T, true, true>(a, stream) : launch<T, true, false>(a, stream);
+  } else {
+    vector ? launch<T, false, true>(a, stream)
+           : launch<T, false, false>(a, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,7 +695,8 @@ int launch_emit(const void* src, const float* u, const float* v, int is_rgba,
 
 // Returns a cudaError_t (0 on success); the wrapper raises on non-zero.
 // emit_u8: the source planes (RGBA stack or luma) are uint8; emit_f32:
-// float32.  U and V are always float32 planes at the output grid.
+// float32.  U and V are always float32 planes at the output grid.  Each
+// launch takes the vector path where `vector_path` allows it.
 #define TPUVF_EMIT_ENTRY(NAME, T)                                              \
   extern "C" int NAME(                                                         \
       const void* src, const float* u, const float* v, int is_rgba,            \
@@ -401,3 +713,14 @@ int launch_emit(const void* src, const float* u, const float* v, int is_rgba,
 
 TPUVF_EMIT_ENTRY(emit_u8, uint8_t)
 TPUVF_EMIT_ENTRY(emit_f32, float)
+
+// 1 where an emit of these planes takes the vector path, else 0 (the
+// scalar path); src_f32 and out_f32 as for emit_f32 and `out_f32`.  For
+// reports: the launch decides by itself.
+extern "C" int emit_vector_path(const void* src, int src_f32, const float* u,
+                                const float* v, const void* out, int out_f32,
+                                int height, int width) {
+  return vector_path(src, src_f32 ? sizeof(float) : sizeof(uint8_t), u, v,
+                     out, out_f32 ? sizeof(float) : sizeof(uint8_t),
+                     static_cast<long long>(height) * width);
+}

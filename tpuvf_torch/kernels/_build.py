@@ -56,11 +56,14 @@ _EMIT_ARGS = (
     # params, frame_index, tx, ty, px, py, gates (-1: no adjustments), stream
     + [_P, _P, _P, _P, _P, _P, _I, _P])
 SIGNATURES = {
-    # in, out, i0, i1, w0, w1, planes, size_in, size_a, size_b, stream
+    # in, out, i0, i1, w0, w1, planes, in_h, out_h, width, stream
     "resample_rows_f32": [_P] * 6 + [_I] * 4 + [_P],
-    "resample_cols_f32": [_P] * 6 + [_I] * 4 + [_P],
+    # in, out, k, w0, w1, stage, planes, height, in_w, out_w, pitch, stream
+    "resample_cols_f32": [_P] * 6 + [_I] * 5 + [_P],
     "emit_u8": _EMIT_ARGS,
     "emit_f32": _EMIT_ARGS,
+    # src, src_f32, u, v, out, out_f32, height, width
+    "emit_vector_path": [_P, _I, _P, _P, _P, _I, _I, _I],
     # in, table, size, pixels, out, quantize, stream
     "lut3d_trilinear_f32": [_P, _P, _I, _I, _P, _I, _P],
     # params (host FoldParams), out, stream

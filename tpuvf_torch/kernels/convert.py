@@ -38,6 +38,7 @@ from tpuvf_torch.kernels import color, sample
 from tpuvf_torch.kernels.color import as_float, dequant, quant
 from tpuvf_torch.kernels.emit import Border
 from tpuvf_torch.kernels.resample import (
+    make_col_taps,
     make_taps,
     resample_cols,
     resample_rows,
@@ -46,15 +47,16 @@ from tpuvf_torch.kernels.sample import LINEAR, NEAREST
 
 
 def plan_axis_taps(in_size: int, out_size: int, filter: str, scale: float,
-                   device):
-    """Device tap table for one axis, or None when the axis is identity
-    (same size, no letterbox: identity under both filters)."""
+                   device, cols: bool = False):
+    """Device tap table for one axis (with K1b's band plan for the columns,
+    `cols`), or None when the axis is identity (same size, no letterbox:
+    identity under both filters)."""
     if scale == 1.0 and out_size == in_size:
         return None
     t = sample.texcoords(out_size, scale)
     mask = sample.coverage_mask(out_size, scale)
-    return make_taps(sample.plan_taps(t, in_size, filter, mask), in_size,
-                     device)
+    make = make_col_taps if cols else make_taps
+    return make(sample.plan_taps(t, in_size, filter, mask), in_size, device)
 
 
 def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
@@ -63,7 +65,7 @@ def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
     resampled (rows, then columns) to float32, or the uint8 planes as they
     are when both axes are identity (the emit dequantizes them)."""
     taps_y = plan_axis_taps(in_h, out_h, filter, scale_y, device)
-    taps_x = plan_axis_taps(in_w, out_w, filter, scale_x, device)
+    taps_x = plan_axis_taps(in_w, out_w, filter, scale_x, device, cols=True)
 
     def run(img: torch.Tensor) -> torch.Tensor:
         if taps_y is None and taps_x is None:
@@ -90,8 +92,8 @@ def plan_texcoord_sampler(in_w: int, in_h: int, t_rows, t_cols, device,
     rows_in, cols_in = (in_w, in_h) if transpose else (in_h, in_w)
     taps_y = make_taps(sample.plan_taps(t_rows, rows_in, LINEAR), rows_in,
                        device)
-    taps_x = make_taps(sample.plan_taps(t_cols, cols_in, LINEAR), cols_in,
-                       device)
+    taps_x = make_col_taps(sample.plan_taps(t_cols, cols_in, LINEAR), cols_in,
+                           device)
 
     def run(img: torch.Tensor) -> torch.Tensor:
         if transpose:

@@ -15,6 +15,11 @@ stream; on a CPU tensor it calls `emit_plain`, which composes the port's
 torch functions op for op.  There is no other path: a CUDA launch that
 fails raises.  The kernel is bitwise equal to its plain version on the card
 (see the source note for where that could break first: gamma's ``powf``).
+Each launch takes the kernel's vector path (4 pixels of every plane a
+thread) where every plane starts on the boundary of its access, else its
+scalar path (one pixel a thread); the kernel's launcher decides from the
+pointers and H*W.  A stack whose H*W is not a multiple of 4, and ``v`` as a
+view into the sampler's stacked (2, H, W) chroma, take the scalar path.
 
 The wrapper counts its kernel launches in ``emit.launches``.
 """

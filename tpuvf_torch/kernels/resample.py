@@ -11,7 +11,10 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/resample.cu``) on the current stream; on a CPU tensor it calls the
 plain PyTorch version beside it.  There is no other path: a CUDA launch that
 fails raises.  Both kernels are bitwise equal to their plain versions (no FMA
-contraction on either side).
+contraction on either side).  Column taps come from `make_col_taps`, which
+also plans the column kernel's tiles (``sample.plan_col_bands``,
+``sample.stage_plan``): the input span each tile of output columns stages in
+shared memory, or none where the tile gathers from device memory.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer that a caller may reset, so a run can show that it went through the
@@ -25,22 +28,31 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuvf_torch.kernels import _build
+from tpuvf_torch.kernels import _build, sample
 
 
 class Taps(NamedTuple):
     """Per-output 2-tap table of one axis (``sample.plan_taps``) on a
-    device: out[o] = w0[o]*in[i0[o]] + w1[o]*in[i1[o]]."""
+    device: out[o] = w0[o]*in[i0[o]] + w1[o]*in[i1[o]].  Column taps
+    (`make_col_taps`) also carry the band plan the column kernel reads
+    (``sample.plan_col_bands``, ``sample.stage_plan``); row taps do not."""
 
     i0: torch.Tensor  # int32 (n_out,)
     i1: torch.Tensor  # int32 (n_out,)
     w0: torch.Tensor  # float32 (n_out,)
     w1: torch.Tensor  # float32 (n_out,)
     in_size: int
+    k: torch.Tensor | None = None  # int32 (2, n_out): i0, i1, dead taps in span
+    stage: torch.Tensor | None = None  # int32 (n_tiles, 2): (lo4, width)
+    pitch: int = 0  # floats per staged row
 
     @property
     def out_size(self) -> int:
         return self.i0.shape[0]
+
+
+def _put(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
 
 def make_taps(table, in_size: int, device) -> Taps:
@@ -52,12 +64,26 @@ def make_taps(table, in_size: int, device) -> Taps:
     if len(i0) and (min(i0.min(), i1.min()) < 0
                     or max(i0.max(), i1.max()) >= in_size):
         raise ValueError(f"tap index out of range for in_size {in_size}")
+    return Taps(_put(i0, np.int32, device), _put(i1, np.int32, device),
+                _put(w0, np.float32, device), _put(w1, np.float32, device),
+                int(in_size))
 
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    return Taps(put(i0, np.int32), put(i1, np.int32), put(w0, np.float32),
-                put(w1, np.float32), int(in_size))
+def make_col_taps(table, in_size: int, device) -> Taps:
+    """`make_taps` for `resample_cols`, with the column kernel's band plan:
+    each tile's input span, staged in shared memory, or none where the tile
+    gathers from device memory."""
+    taps = make_taps(table, in_size, device)
+    span, k0, k1 = sample.plan_col_bands(table)
+    stage, pitch = sample.stage_plan(span, in_size)
+    return taps._replace(k=_put(np.stack([k0, k1]), np.int32, device),
+                         stage=_put(stage, np.int32, device), pitch=pitch)
+
+
+def col_paths(taps: Taps):
+    """-> (tiles K1b stages in shared memory, tiles it gathers directly)."""
+    staged = int((taps.stage[:, 1] > 0).sum())
+    return staged, taps.stage.shape[0] - staged
 
 
 # -- plain versions (CPU path; the reference the kernels are held against) --
@@ -90,22 +116,25 @@ def _check(x: torch.Tensor, taps: Taps, axis: int, name: str) -> None:
     if x.shape[axis] != taps.in_size:
         raise ValueError(f"{name}: axis {axis} has {x.shape[axis]} entries, "
                          f"taps expect {taps.in_size}")
-    for t in taps[:4]:
+    for t in _tensors(taps):
         if t.device != x.device:
             raise ValueError(f"{name}: taps on {t.device}, input on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _launch(fn, x: torch.Tensor, out: torch.Tensor, taps: Taps, *sizes) -> None:
+def _tensors(taps: Taps):
+    return [t for t in taps[:4] + (taps.k, taps.stage) if t is not None]
+
+
+def _launch(fn, x: torch.Tensor, out: torch.Tensor, tables, *sizes) -> None:
     if not x.is_contiguous():
         raise ValueError("resample kernels need a contiguous input")
-    for t in taps[:4]:
+    for t in tables:
         if not t.is_contiguous():
             raise ValueError("resample kernels need contiguous taps")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), taps.i0.data_ptr(),
-             taps.i1.data_ptr(), taps.w0.data_ptr(), taps.w1.data_ptr(),
+    err = fn(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
              *sizes, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
@@ -122,14 +151,18 @@ def resample_rows(x: torch.Tensor, taps: Taps) -> torch.Tensor:
     if out.numel() == 0:
         return out
     planes = x.numel() // (in_h * width)
-    _launch(_build.load().resample_rows_f32, x, out, taps,
+    _launch(_build.load().resample_rows_f32, x, out, taps[:4],
             planes, in_h, taps.out_size, width)
     resample_rows.launches += 1
     return out
 
 
 def resample_cols(x: torch.Tensor, taps: Taps) -> torch.Tensor:
-    """K1b: resample the columns (axis -1) of float32 (..., H, in_w)."""
+    """K1b: resample the columns (axis -1) of float32 (..., H, in_w) with
+    `make_col_taps`' taps."""
+    if taps.k is None:
+        raise ValueError("resample_cols: taps without a band plan "
+                         "(make them with make_col_taps)")
     _check(x, taps, -1, "resample_cols")
     if x.device.type == "cpu":
         return resample_cols_plain(x, taps)
@@ -139,8 +172,9 @@ def resample_cols(x: torch.Tensor, taps: Taps) -> torch.Tensor:
     if out.numel() == 0:
         return out
     planes = x.numel() // (height * in_w)
-    _launch(_build.load().resample_cols_f32, x, out, taps,
-            planes, height, in_w, taps.out_size)
+    _launch(_build.load().resample_cols_f32, x, out,
+            (taps.k, taps.w0, taps.w1, taps.stage),
+            planes, height, in_w, taps.out_size, taps.pitch)
     resample_cols.launches += 1
     return out
 

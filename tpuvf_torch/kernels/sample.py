@@ -111,6 +111,67 @@ def plan_taps(
     return i0.astype(np.int32), i1.astype(np.int32), w0, w1
 
 
+COL_TILE = 256  # output columns of one K1b tile (csrc/resample.cu kColTile)
+MAX_PITCH = 1024  # widest span K1b stages in shared memory, floats (kMaxPitch)
+
+
+def plan_col_bands(table, tile: int = COL_TILE):
+    """The band plan of a `plan_taps` table for the column resampler (K1b):
+    tpuvf's `blockband_plan` (``tpuvf/kernels/sample.py:112``) read off the
+    taps instead of the dense matrix.
+
+    Returns numpy (span, k0, k1):
+
+    - span: int32 (ceil(n_out / tile), 2), the input columns [lo, hi) that
+      the live taps (nonzero weights) of each tile of `tile` output columns
+      read; (0, 0) for a tile without one (masked by the letterbox);
+    - k0, k1: int32 (n_out,), the taps' indices with every dead tap (weight
+      0) pointed at its tile's lo, so each index a tile reads lies in its
+      span (an empty tile's at 0).  A dead tap adds 0 * in[k], which equals
+      the plain version's 0 * in[i] for the finite planes the sampler reads.
+    """
+    i0, i1, w0, w1 = (np.asarray(a) for a in table)
+    n = len(i0)
+    n_tiles = -(-n // tile)
+    tile_of = np.arange(n) // tile
+    live0, live1 = w0 != 0, w1 != 0
+    idx = np.concatenate([i0[live0], i1[live1]]).astype(np.int64)
+    owner = np.concatenate([tile_of[live0], tile_of[live1]])
+    lo = np.full(n_tiles, np.iinfo(np.int64).max)
+    hi = np.full(n_tiles, -1)
+    np.minimum.at(lo, owner, idx)
+    np.maximum.at(hi, owner, idx)
+    live = hi >= 0
+    lo = np.where(live, lo, 0)
+    hi = np.where(live, hi + 1, 0)
+    k0 = np.where(live0, i0, lo[tile_of])
+    k1 = np.where(live1, i1, lo[tile_of])
+    return (np.stack([lo, hi], 1).astype(np.int32), k0.astype(np.int32),
+            k1.astype(np.int32))
+
+
+def stage_plan(span: np.ndarray, in_size: int, max_pitch: int = MAX_PITCH):
+    """K1b's path for each tile of a band plan -> (stage, pitch).
+
+    A tile with live taps whose span, widened to 16-byte boundaries
+    [lo4, hi4) (lo down and hi up to a multiple of 4 floats, hi at most
+    `in_size`), is at most `max_pitch` floats wide is staged in shared
+    memory: stage[t] = (lo4, hi4 - lo4).  Any other tile takes the direct
+    gather from device memory: stage[t] = (0, 0); those are a span wider
+    than the staging budget (an extreme downscale) and a tile without live
+    taps.  pitch: the widest staged row, rounded up to 4 floats (0 when no
+    tile is staged)."""
+    lo = span[:, 0].astype(np.int64)
+    hi = span[:, 1].astype(np.int64)
+    lo4 = lo & ~3
+    hi4 = np.minimum((hi + 3) & ~3, in_size)
+    staged = (hi > lo) & (hi4 - lo4 <= max_pitch)
+    width = np.where(staged, hi4 - lo4, 0)
+    pitch = -(-int(width.max(initial=0)) // 4) * 4
+    return (np.stack([np.where(staged, lo4, 0), width], 1).astype(np.int32),
+            pitch)
+
+
 def letterbox_scales(in_w: int, in_h: int, out_w: int, out_h: int):
     """Centered aspect-fit quad scales (metalconvertscalerenderer.m:148-160)."""
     src_aspect = in_w / in_h
