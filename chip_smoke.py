@@ -32,12 +32,20 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    reaches;
    K3 (lut3d_trilinear_f32) against apply_lut_t_plain at 1080p with seeded
    non-identity 17^3, 33^3 and 64^3 tables, bitwise on the float32 output
-   and on the quantizing epilogue;
+   and on the quantizing epilogue, on uniform noise, on chain (c)'s own
+   LUT input and on a smooth gradient, each line naming the launcher's
+   paths (its exported query, held to the mirror `lut.table_path`); each
+   input also cropped to 1919x1079, whose pixel count takes the path of 1
+   pixel a thread;
    K4 (composite_fold, vfcompositor's blend fold) against
    composite_fold_plain, bitwise: BASELINE config 5's shape (a 4K canvas,
-   four u8/f32 draws, OVER, OVER at alpha 0.7, ADD), a checker background
-   with negative positions and SOURCE, and more draws than one launch
-   holds; its device time is also read from torch.profiler;
+   four u8/f32 draws, OVER, OVER at alpha 0.7, ADD), the same with the
+   folded overlay as a fifth (mix) draw, the same shape placed off the
+   4-pixel grid on a 3838-wide canvas (every draw and the canvas on the
+   scalar path), a checker background with negative positions and SOURCE,
+   and more draws than one launch holds; each line names each draw's path
+   (the launcher's rule, held to the Python mirror); its device time is
+   also read from torch.profiler;
    K5 (deinterlace_u8, vfdeinterlace's field kernel) against
    deinterlace_plain at 1080p RGBA8, bitwise: bob, weave and greedy-H,
    tff True/False, with and without a previous frame, threshold 0.3, and
@@ -56,7 +64,9 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    sharpness -> BGRA; (e) BASELINE config 5: four appsrcs (BGRA 4K, NV12
    1080p, BGRA 720p at alpha 0.7, NV12 720p ADD) -> vfmetalcompositor ->
    BGRA 3840x2160 -> vfmetaloverlay of a 256x256 red PNG (alpha 128) at
-   (128, 128); (f) a checker composite to NV12 1920x1080 of a scaled NV12
+   (128, 128), folded into K4 (K6 must not launch); (e') the same to NV12,
+   where the overlay does not fold and runs K6; (f) a checker composite to
+   NV12 1920x1080 of a scaled NV12
    1080p pad at a negative position and a keep-aspect BGRA pad;
    (g) BASELINE config 4: appsrc I420 1920x1080 interlaced ->
    vfmetaldeinterlace greedy-H threshold 0.3 -> I420, a block moving over
@@ -66,7 +76,8 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    crop-top 16; (h') NV12 1920x1080 counterclockwise, crop-right 64 ->
    NV12; (h'') NV12 1920x1080 rotate-180 (the flip fast path).  The
    kernels' launch counters are set to 0 just before each run and read
-   just after; each kernel of the path must have grown.
+   just after; each kernel of the path must have grown, and a kernel the
+   path must not reach (K6 in (e)) must not have.
    Frame 0 must be within 1 LSB of the same pipeline on the CPU;
    device-resident us/frame of the built step (CUDA events and the host
    clock), its device-busy us (torch.profiler) and idle share, and wall fps
@@ -78,7 +89,7 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    transform clockwise with crops, and a PNG overlay on NV12.
 
 Then one [roofline] line per kernel: its device time beside the one
-measured on the kernels of commit 4d832be (BEFORE_US), its bound and
+measured on the kernels of commit d03551a (BEFORE_US), its bound and
 share, its library call's device time and its launches on the main paths.
 The line before the last is a JSON object {"kernels": [...]}, each entry
 with ms and plain_ms (CUDA events), device_us, bound_us and bound_ms,
@@ -108,13 +119,14 @@ BCS = "vfmetalvideofilter brightness=0.05 contrast=1.1 saturation=1.2"
 CONFIG3 = ("vfmetalvideofilter brightness=0.1 contrast=1.2 saturation=1.3 "
            "chroma-key-enabled=true")
 # BASELINE config 5 (bench/configs.py:186-257): the 4-pad 4K composite and
-# its 256x256 red PNG overlay at (128, 128) ({png}), which tpuvf folds into
-# the composite and the port runs as its own element (the same values for
-# an RGB output, tpuvf/runtime/pipeline.py:541-554)
+# its 256x256 red PNG overlay at (128, 128) ({png}), which the pipeline
+# folds into the composite's K4 launch for an RGB output ({fmt} BGRA) and
+# runs as its own K6 stage after a YUV one (NV12), as tpuvf does
+# (tpuvf/runtime/pipeline.py:541-606)
 CONFIG5 = ("vfmetalcompositor name=c background=black sink_1::xpos=1920 "
            "sink_2::ypos=1080 sink_2::alpha=0.7 sink_3::xpos=1920 "
            "sink_3::ypos=1080 sink_3::operator=add "
-           "! video/x-raw,format=BGRA,width=3840,height=2160 "
+           "! video/x-raw,format={fmt},width=3840,height=2160 "
            "! vfmetaloverlay location={png} x=128 y=128 ! appsink "
            "appsrc name=s0 format=BGRA width=3840 height=2160 ! c.sink_0 "
            "appsrc name=s1 format=NV12 width=1920 height=1080 ! c.sink_1 "
@@ -247,6 +259,18 @@ def moved_bytes(*tensors) -> int:
     """Bytes a function must move: each input read once, each output
     written once."""
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lut_rows_bytes(x, size) -> int:
+    """Bytes of the packed K3 table that the frame's pixels need: one
+    96-byte corner row for each cell that some pixel falls in (the plain
+    version's cell index, NaN to cell 0)."""
+    import torch
+
+    s1 = float(size - 1)
+    r, g, b = (torch.nan_to_num(torch.floor(x[c] * s1), nan=0.0)
+               .clamp(0.0, s1).long() for c in range(3))
+    return int(torch.unique((b * size + g) * size + r).numel()) * 24 * 4
 
 
 def bound_us(label, nbytes, elements):
@@ -576,52 +600,114 @@ def write_cube(path, table):
     return str(path)
 
 
-def phase_lut(summary):
-    """K3 against lut3d_plain at 1080p; the JSON times are the 33^3
-    quantizing case's (chain (c))."""
+def chain_c_lut_input(tmp):
+    """Chain (c)'s own K3 input: the float32 frame its emit hands the LUT
+    (random NV12 after b/c/s + chroma key, clamped colours included),
+    captured from vfvideofilter's call on the card."""
+    from tpuvf_torch.elements import videofilter
+
+    seen, lut3d = [], videofilter.lut3d
+
+    def capture(chans, *args, **kwargs):
+        seen.append(chans.clone())
+        return lut3d(chans, *args, **kwargs)
+
+    videofilter.lut3d = capture
+    try:
+        lut33 = write_cube(Path(tmp) / "capture33.cube", grade_cube(33, 3))
+        fed_pipeline(f"appsrc format=NV12 width=1920 height=1080 ! {CONFIG3} "
+                     f"lut-file={lut33} ! appsink",
+                     {"appsrc0": nv12_frames(1, 1920, 1080, seed=3)},
+                     "cuda").run()
+    finally:
+        videofilter.lut3d = lut3d
+    return seen[0]
+
+
+def lut_inputs(gen, tmp):
+    """{name: (4, 1080, 1920) float32 planes}: uniform noise (each pixel's
+    corner row at random, the headline), chain (c)'s frame, and a smooth
+    gradient (neighbours share their cells, as a graded frame does); each
+    with exact grid points, 0 and 1 written in per size by phase_lut."""
+    import torch
+
+    noise = torch.rand((4, 1080, 1920), generator=gen, device="cuda")
+    ys = torch.linspace(0.0, 1.0, 1080, device="cuda")[:, None]
+    xs = torch.linspace(0.0, 1.0, 1920, device="cuda")[None, :]
+    gradient = torch.stack([xs.expand(1080, 1920), ys.expand(1080, 1920),
+                            (0.5 * (xs + ys)).expand(1080, 1920),
+                            torch.ones((1080, 1920), device="cuda")])
+    return {"noise": noise, "chain (c) frame": chain_c_lut_input(tmp),
+            "gradient": gradient.contiguous()}
+
+
+def phase_lut(summary, tmp):
+    """K3 against lut3d_plain at 1080p, each line naming the launcher's
+    paths, and each input cropped to 1919x1079 (1 pixel a thread); the
+    JSON times are the 1080p 33^3 quantizing case on noise (chain (c))."""
     import torch
 
     from tpuvf_torch.kernels import filter as kfilter, lut
 
     gen = torch.Generator(device="cuda").manual_seed(33)
-    x = torch.rand((4, 1080, 1920), generator=gen, device="cuda")
+    inputs = lut_inputs(gen, tmp)
     for size in (17, 33, 64):
-        grid = torch.arange(size, device="cuda") / float(size - 1)
-        x[:3, 0, :size] = grid  # exact grid points, 0 and 1
-        x[:3, 1, 0], x[:3, 1, 1] = 0.0, 1.0
         cube = grade_cube(size, seed=size)
         table = torch.from_numpy(kfilter.pack_lut_corners(cube)).cuda()
-        for quantize in (True, False):
-            got = lut.lut3d(x, table, size, quantize)
-            want = lut.lut3d_plain(x, table, size, quantize)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            if not torch.equal(got, want):
-                fail(f"K3 {size}^3 quantize={quantize}: kernel != plain "
-                     f"(max |diff| {err})")
-            ms = cuda_ms(lambda: lut.lut3d(x, table, size, quantize))
-            plain_ms = cuda_ms(lambda: lut.lut3d_plain(x, table, size,
-                                                       quantize))
-            headline = size == 33 and quantize
-            extra = ""
-            if headline:  # chain (c)'s shape: roofline + yardstick
-                lib_fn, lib_out = grid_sample_yardstick(x, cube)
-                lib_ms = cuda_ms(lib_fn)
-                lib_us = profiled_us(lib_fn)
-                extra = roofline(summary, "K3",
-                                 lambda: lut.lut3d(x, table, size, quantize),
-                                 moved_bytes(x, table, got), x[0].numel(),
-                                 library_ms=lib_ms)
-                summary["K3"]["library_device_us"] = lib_us
-                f32 = lut.lut3d(x, table, size, False)[:3]
-                extra += (f" | F.grid_sample {lib_ms * 1e3:.1f} us, device "
-                          f"{lib_us:.1f} us (max |diff| from the kernel's "
-                          f"f32 {float((lib_out - f32).abs().max()):.2e})")
-            kind = "u8 epilogue" if quantize else "f32"
-            print(f"[3 K3] 1080p {size}^3 table ({table.numel() * 4 / 1e6:.2f}"
-                  f" MB), {kind}: torch.equal OK | kernel {ms * 1e3:.1f} us, "
-                  f"plain {plain_ms * 1e3:.1f} us{extra}", flush=True)
-            record(summary, "K3", err, ms if headline else None, plain_ms)
+        grid = torch.arange(size, device="cuda") / float(size - 1)
+        for kind, full in inputs.items():
+            full[:3, 0, :size] = grid  # exact grid points, 0 and 1
+            full[:3, 1, 0], full[:3, 1, 1] = 0.0, 1.0
+            frames = ((f"1080p {kind}", full, kind == "noise"),
+                      (f"{kind} 1919x1079",
+                       full[:, :1079, :1919].contiguous(), False))
+            for frame, x, with_f32 in frames:
+                for quantize in (True, False) if with_f32 else (True,):
+                    phase_lut_case(summary, size, cube, table, frame, x,
+                                   quantize)
+
+
+def phase_lut_case(summary, size, cube, table, frame, x, quantize):
+    """One K3 case: bitwise against lut3d_plain, its paths held to the
+    mirror, timed beside the plain version."""
+    import torch
+
+    from tpuvf_torch.kernels import lut
+
+    run = (lambda: lut.lut3d(x, table, size, quantize))
+    got = run()
+    want = lut.lut3d_plain(x, table, size, quantize)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    label = f"{frame} {size}^3 {'u8' if quantize else 'f32'}"
+    if not torch.equal(got, want):
+        fail(f"K3 {label}: kernel != plain (max |diff| {err})")
+    how = lut.lut3d_path(x, got, size)
+    if not how.startswith(lut.PATH_NAMES[lut.table_path(size)]):
+        fail(f"K3 {label}: the launcher took {how!r}, not lut.table_path's")
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: lut.lut3d_plain(x, table, size, quantize))
+    headline = size == 33 and quantize and frame == "1080p noise"
+    nbytes = moved_bytes(x, got) + lut_rows_bytes(x, size)
+    extra = ""
+    if headline:  # chain (c)'s shape: roofline + yardstick
+        lib_fn, lib_out = grid_sample_yardstick(x, cube)
+        lib_ms = cuda_ms(lib_fn)
+        lib_us = profiled_us(lib_fn)
+        extra = roofline(summary, "K3", run, nbytes, x[0].numel(),
+                         library_ms=lib_ms)
+        summary["K3"]["library_device_us"] = lib_us
+        f32 = lut.lut3d(x, table, size, False)[:3]
+        extra += (f" | F.grid_sample {lib_ms * 1e3:.1f} us, device "
+                  f"{lib_us:.1f} us (max |diff| from the kernel's f32 "
+                  f"{float((lib_out - f32).abs().max()):.2e})")
+    elif quantize:
+        extra = roofline(summary, "K3", run, nbytes, x[0].numel(),
+                         case=label)
+    print(f"[3 K3] {label} ({table.numel() * 4 / 1e6:.2f} MB table), "
+          f"{how}: torch.equal OK | kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us{extra}", flush=True)
+    record(summary, "K3", err, ms if headline else None, plain_ms)
 
 
 def grid_sample_yardstick(x, cube):
@@ -677,14 +763,16 @@ def profiled_us(fn, reps: int = 20) -> float:
     return device_breakdown(fn, reps)[0]
 
 
-def composite_cases(gen):
+def composite_cases(gen, tmp):
     """(label, height, width, Background, [Draw]) for K4, on the card."""
     import numpy as np
     import torch
 
+    from tpuvf_torch.io import png
     from tpuvf_torch.kernels.composite import (OP_ADD, OP_OVER, OP_SOURCE,
                                                Background, Draw,
                                                background_colors)
+    from tpuvf_torch.kernels.overlay import overlay_rect
 
     def draw(h, w, pw, ph, x, y, op, alpha, f32):
         if f32:  # an emit's float32 RGBA: colour in [0, 1], alpha 1
@@ -697,16 +785,36 @@ def composite_cases(gen):
                 min(max(x + pw, 0), w), min(max(y + ph, 0), h))
         return Draw(src, x, y, rect, op, float(np.float32(alpha)))
 
+    def config5(dx, dw, width):
+        """Config 5's four pads, each moved dx right and dw narrower."""
+        return [draw(2160, width, 3840 - dw, 2160, dx, 0, OP_OVER, 1.0,
+                     False),
+                draw(2160, width, 1920 - dw, 1080, 1920 + dx, 0, OP_OVER, 1.0,
+                     True),
+                draw(2160, width, 1280 - dw, 720, dx, 1080, OP_OVER, 0.7,
+                     False),
+                draw(2160, width, 1280 - dw, 720, 1920 + dx, 1080, OP_ADD,
+                     1.0, True)]
+
+    # config 5's overlay as the pipeline folds it: the 256x256 red PNG
+    # (alpha 128) at (128, 128), a mix draw of its float32 rect planes
+    red = png.decode_premultiplied(
+        Path(red_png(Path(tmp) / "k4-red.png")).read_bytes())
+    (x0, x1, y0, y1), planes = overlay_rect(red, 3840, 2160, 128.0, 128.0,
+                                            256.0, 256.0)
+    mix = Draw(torch.from_numpy(planes).cuda(), x0, y0, (x0, y0, x1, y1),
+               OP_OVER, 1.0, keep_alpha=True)
     black = Background(background_colors(((0, 0, 0, 1),) * 2), True)
     checker = Background(background_colors(((0.5, 0.5, 0.5, 1),
                                             (0.75, 0.75, 0.75, 1))), True)
+    base = config5(0, 0, 3840)
     return [
         ("config 5 shape: 4K canvas, 4K u8 + 1080p f32 OVER, 720p u8 OVER "
-         "0.7, 720p f32 ADD", 2160, 3840, black,
-         [draw(2160, 3840, 3840, 2160, 0, 0, OP_OVER, 1.0, False),
-          draw(2160, 3840, 1920, 1080, 1920, 0, OP_OVER, 1.0, True),
-          draw(2160, 3840, 1280, 720, 0, 1080, OP_OVER, 0.7, False),
-          draw(2160, 3840, 1280, 720, 1920, 1080, OP_ADD, 1.0, True)]),
+         "0.7, 720p f32 ADD", 2160, 3840, black, base),
+        ("config 5 shape + the folded 256x256 overlay (mix draw, chain (e))",
+         2160, 3840, black, base + [mix]),
+        ("config 5 shape off the 4-pixel grid: 3838-wide canvas, pads at "
+         "x + 1, 3 px narrower", 2160, 3838, black, config5(1, 3, 3838)),
         ("1080p checker, negative positions, SOURCE, odd sizes at odd x",
          1080, 1920, checker,
          [draw(1080, 1920, 1280, 720, -100, -51, OP_SOURCE, 0.6, True),
@@ -720,15 +828,34 @@ def composite_cases(gen):
     ]
 
 
-def phase_composite(summary):
+def draw_paths(draws) -> str:
+    """Each draw's source path as K4's launcher picks it (its exported
+    rule), which must equal composite.draw_vector_path's."""
+    import torch
+
+    from tpuvf_torch.kernels import _build, composite
+
+    paths = []
+    for d in draws:
+        vector = bool(_build.load().composite_draw_vector_path(
+            d.src.data_ptr(), int(d.src.dtype == torch.float32),
+            d.src.shape[2], d.x))
+        if vector != composite.draw_vector_path(d):
+            fail(f"K4: the launcher's path for a draw at x {d.x}, width "
+                 f"{d.src.shape[2]} is not draw_vector_path's")
+        paths.append("vector" if vector else "scalar")
+    return "/".join(paths)
+
+
+def phase_composite(summary, tmp):
     """K4 against composite_fold_plain; the JSON times are the config-5
-    shape's (chain (e))."""
+    shape's (chain (e)'s pads)."""
     import torch
 
     from tpuvf_torch.kernels import composite
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for i, (label, h, w, bg, draws) in enumerate(composite_cases(gen)):
+    for i, (label, h, w, bg, draws) in enumerate(composite_cases(gen, tmp)):
         args = (h, w, bg, draws, "cuda")
         got = composite.composite_fold(*args)
         want = composite.composite_fold_plain(*args)
@@ -740,16 +867,20 @@ def phase_composite(summary):
         ms = cuda_ms(lambda: composite.composite_fold(*args))
         plain_ms = cuda_ms(lambda: composite.composite_fold_plain(*args))
         device = ""
-        if i == 0:
-            plain_dev_us = profiled_us(
-                lambda: composite.composite_fold_plain(*args))
+        if i < 3:  # the config-5 shapes: device time beside the bound
             device = roofline(summary, "K4",
                               lambda: composite.composite_fold(*args),
                               moved_bytes(*(d.src for d in draws), got),
-                              h * w * len(draws))
+                              h * w * len(draws),
+                              case=None if i == 0 else label)
+        if i == 0:
+            plain_dev_us = profiled_us(
+                lambda: composite.composite_fold_plain(*args))
             device += f" | plain device {plain_dev_us:.1f} us"
-        print(f"[3 K4] {label}: torch.equal OK | kernel {ms * 1e3:.1f} us, "
-              f"plain {plain_ms * 1e3:.1f} us{device}", flush=True)
+        canvas = "vector" if w % 4 == 0 else "scalar"
+        print(f"[3 K4] {label}: torch.equal OK | canvas {canvas}, draws "
+              f"{draw_paths(draws)} | kernel {ms * 1e3:.1f} us, plain "
+              f"{plain_ms * 1e3:.1f} us{device}", flush=True)
         record(summary, "K4", err, ms if i == 0 else None, plain_ms)
 
 
@@ -961,7 +1092,8 @@ def _planes(frame):
 
 
 def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
-    """Drive one main path on the card, fed {appsrc name: frames};
+    """Drive one main path on the card, fed {appsrc name: frames}; every
+    kernel of `expect` must launch, and none of it written "!K6" may;
     -> {kernel: launches}."""
     import numpy as np
     import torch
@@ -976,10 +1108,14 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     launches = {k: w.launches for k, w in wrappers.items()}
     if n != len(frames):
         fail(f"{label}: ran {n} of {len(frames)} frames")
-    missing = [k for k in expect if launches[k] == 0]
+    missing = [k for k in expect if k[0] != "!" and launches[k] == 0]
     if missing:
         fail(f"{label}: launch counters {launches}; the path did not reach "
              f"{', '.join(missing)}")
+    barred = [k[1:] for k in expect if k[0] == "!" and launches[k[1:]]]
+    if barred:
+        fail(f"{label}: launch counters {launches}; the path must not reach "
+             f"{', '.join(barred)}")
     outs = [_planes(f) for f in pipe["appsink0"].frames]
     for i, f in enumerate(outs):
         for k, v in f.items():
@@ -1035,10 +1171,15 @@ def run_fps(pipe) -> float:
 
 def main_paths(tmp):
     """Chains (a)-(h''): [(label, description, {appsrc: frames}, kernels
-    the chain must launch, opaque output, *({appsrc: [tff]},))]."""
+    the chain must launch ("!K6": must not), opaque output, *({appsrc:
+    [tff]},))]."""
     lut33 = write_cube(Path(tmp) / "grade33.cube", grade_cube(33, seed=3))
     lut17 = write_cube(Path(tmp) / "grade17.cube", grade_cube(17, seed=17))
     red = red_png(Path(tmp) / "config5-red.png")
+    config5 = {"s0": rgba_frames(FRAMES, 3840, 2160, seed=50),
+               "s1": nv12_frames(FRAMES, 1920, 1080, seed=51),
+               "s2": rgba_frames(FRAMES, 1280, 720, seed=52),
+               "s3": nv12_frames(FRAMES, 1280, 720, seed=53)}
     return [
         ("(a) NV12 1920x1080 -> BGRA 640x480 + b/c/s",
          f"appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale ! "
@@ -1068,12 +1209,11 @@ def main_paths(tmp):
          {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=17)}, ("K2", "K3"),
          False),
         ("(e) config 5: BGRA 4K + NV12 1080p + BGRA 720p alpha 0.7 + NV12 "
-         "720p ADD -> BGRA 4K, then the 256x256 PNG overlay at (128, 128)",
-         CONFIG5.format(png=red),
-         {"s0": rgba_frames(FRAMES, 3840, 2160, seed=50),
-          "s1": nv12_frames(FRAMES, 1920, 1080, seed=51),
-          "s2": rgba_frames(FRAMES, 1280, 720, seed=52),
-          "s3": nv12_frames(FRAMES, 1280, 720, seed=53)},
+         "720p ADD -> BGRA 4K, then the 256x256 PNG overlay at (128, 128), "
+         "folded into K4", CONFIG5.format(png=red, fmt="BGRA"), config5,
+         ("K1", "K1b", "K2", "K4", "!K6"), False),
+        ("(e') config 5 -> NV12 4K, then the overlay (not folded: K6)",
+         CONFIG5.format(png=red, fmt="NV12"), config5,
          ("K1", "K1b", "K2", "K4", "K6"), False),
         ("(f) checker composite -> NV12 1080p: NV12 1080p scaled to 1280x720 "
          "at xpos -100 + BGRA 720p keep-aspect", CHAIN_F,
@@ -1319,13 +1459,13 @@ KERNELS = (
      "tpuvf/elements/overlay.py:595"),
 )
 # Device time (us, torch.profiler self time) of each kernel at its JSON
-# shape, and of K2 at chain (b)'s RGBA shape, before the redesigns of K2 and
-# K1b, and where it was measured: this script's phase 3 on the kernels of
-# commit 4d832be.
-BEFORE_CALL = "kernels of 4d832be, NVIDIA H100 80GB HBM3, 700.00 W"
-BEFORE_US = {"K1": 20.379, "K1b": 66.788, "K2": 64.127, "K3": 62.543,
-             "K4": 88.264, "K5": 13.761, "K6": 42.628,
-             "K2 4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)": 57.3}
+# shape, and of K2 at chain (b)'s RGBA shape, before the redesigns of K3 and
+# K4, and where it was measured: this script's phase 3 on the kernels of
+# commit d03551a (PERF.md section 6).
+BEFORE_CALL = "kernels of d03551a, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_US = {"K1": 20.1, "K1b": 37.3, "K2": 39.8, "K3": 62.6, "K4": 88.3,
+             "K5": 14.0, "K6": 42.1,
+             "K2 4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)": 31.4}
 
 
 def host_steps() -> int:
@@ -1397,10 +1537,10 @@ def main(argv) -> int:
     summary = {}
     phase_resample(summary)
     phase_emit(summary)
-    phase_lut(summary)
-    phase_composite(summary)
     phase_deinterlace(summary)
     with tempfile.TemporaryDirectory() as tmp:
+        phase_lut(summary, tmp)
+        phase_composite(summary, tmp)
         phase_overlay(summary, tmp)
         launches = phase_chains(tmp)
         phase_oracle(tmp)

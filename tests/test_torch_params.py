@@ -136,10 +136,28 @@ def test_overlay_alpha_carries_and_buffers_drop(tmp_path):
     assert torch.equal(params["alpha"], own["alpha"])
 
 
+def test_folded_compositor_params_carry(tmp_path, monkeypatch):
+    """A tpuvf compositor that folded a vfoverlay carries over: its
+    ``fold.<name>.alpha`` arrives as the float32-valued Python float the
+    port's folded compositor gives itself, beside the pad params."""
+    from tests.test_torch_fold import COMP, PADS, _feeds, _png, _run
+    from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
+    from tpuvf_torch.cli.launch import parse_pipeline as port_parse
+
+    monkeypatch.setenv("TPUVF_NO_SPLIT_LINKS", "1")
+    image = _png(tmp_path, "a.png", 8, 6, seed=1, alpha=150)
+    desc = (COMP.format(fmt="BGRA") + f"! vfmetaloverlay name=o1 "
+            f"location={image} x=3 y=2 alpha=0.35 ! appsink " + PADS)
+    tparams = _run(tpuvf_parse, desc, _feeds(3))["c"].traced_params()
+    assert "fold.o1.alpha" in tparams
+    params, state = from_tpuvf(tparams, (), "cpu")
+    own = _run(port_parse, desc, _feeds(3), device="cpu").params()["c"]
+    assert params == own and state == ()
+    assert type(params["fold.o1.alpha"]) is float
+    assert params["fold.o1.alpha"] == float(np.float32(0.35))
+
+
 def test_unported_params_raise():
-    with pytest.raises(NotImplementedError, match="vfoverlay") as err:
-        from_tpuvf({"fold.vfoverlay0.alpha": np.float32(0.5)}, (), "cpu")
-    assert "its own element" in str(err.value)
     with pytest.raises(NotImplementedError):
         from_tpuvf({"weights": np.zeros((8, 24), np.float32)}, (), "cpu")
     with pytest.raises(NotImplementedError):

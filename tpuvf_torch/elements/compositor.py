@@ -29,11 +29,16 @@ float32 RGBA), folds every draw over the background in one launch of K4
 A draw whose flag is 0 is skipped outright, sampling included: exact
 because ``quant(dequant(v)) == v`` for every uint8 ``v``.
 
+Folded overlays (``fold_overlays``, planned by the pipeline for an RGB
+output, tpuvf's ``make_aggregate(..., fold_overlays=)``): each downstream
+vfoverlay's rect blend is a final mix draw of the same K4 launch, its
+float32 rect planes resampled at build time and its alpha read each frame
+from this element's params as ``fold.<name>.alpha``; the overlay's own
+stage is a passthrough.
+
 Not ported (ROADMAP): tpuvf's split/cells/masked/sp render bodies and
-``aggregate_split_ok`` (TPU layouts), the vfoverlay fold
-(``fold_overlays``: a downstream vfoverlay runs as its own stage, equal
-for RGB outputs), ``navigation_event`` and the ``_ctl_*`` controller
-hooks.
+``aggregate_split_ok`` (TPU layouts), ``navigation_event`` and the
+``_ctl_*`` controller hooks.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from tpuvf_torch.core.element import Element
 from tpuvf_torch.core.formats import CORE_FORMATS, RGB_FORMATS, VideoFormat
@@ -199,6 +205,7 @@ class Compositor(Element):
         super().__init__(*a, **k)
         self.pads: Dict[str, PropertyBag] = {}
         self._pad_insert_order: Dict[str, int] = {}
+        self._fold_elems = []  # the overlays the last make_aggregate folded
 
     # -- GstChildProxy analog: request pads ------------------------------
 
@@ -290,12 +297,16 @@ class Compositor(Element):
             out[f"pad.{name}.ypos"] = int(bag.get("ypos"))
             out[f"pad.{name}.alpha"] = float(np.float32(bag.get("alpha")))
             out[f"pad.{name}.operator"] = int(bag.get("operator"))
+        # folded overlays' controllable alpha rides this element's params
+        for ov in self._fold_elems:
+            out[f"fold.{ov.name}.alpha"] = float(np.float32(
+                ov.props.get("alpha")))
         return out
 
     # -- planning ----------------------------------------------------------
 
     def make_aggregate(self, pad_specs: Dict[str, FrameSpec],
-                       out_spec: FrameSpec, device):
+                       out_spec: FrameSpec, device, fold_overlays=()):
         """Plan the aggregate on `device` -> process(pad_inputs, state,
         params) -> (output planes, state).
 
@@ -303,7 +314,9 @@ class Compositor(Element):
         `params` holds this element's `traced_params` and, from the
         runtime clock, ``params["__pad_meta__"][pad]``: 'active' (the
         stream has started) and 'eos' (past its last buffer: the frozen
-        last frame keeps drawing unless ignore-inactive-pads)."""
+        last frame keeps drawing unless ignore-inactive-pads).
+        `fold_overlays`: vfoverlay elements blended as final mix draws
+        (module doc); the caller has checked that they can fold."""
         out_w, out_h = out_spec.width, out_spec.height
         ignore_inactive = bool(self.props.get("ignore-inactive-pads"))
         colors = background_colors(_BACKGROUNDS[self.props.get("background")])
@@ -316,6 +329,13 @@ class Compositor(Element):
                                   _plan_sampler(pad.spec, w, h, device),
                                   pad.spec.format not in RGB_FORMATS))
         out_format, matrix_out = out_spec.format, out_spec.matrix_index
+        mixes = []  # (overlay name, (4, h, w) float32 rect planes, rect)
+        for ov in fold_overlays:
+            (x0, x1, y0, y1), planes = ov.fold_rect(out_spec)
+            if x1 > x0 and y1 > y0:
+                mixes.append((ov.name, torch.from_numpy(planes).to(device),
+                              (x0, y0, x1, y1)))
+        self._fold_elems = list(fold_overlays)
 
         def has_buffer(meta) -> bool:
             meta = meta or {}
@@ -367,6 +387,11 @@ class Compositor(Element):
                 draws.append(Draw(
                     d.sample(pad_inputs[d.name]), p["x"], p["y"], p["rect"],
                     int(params[f"pad.{d.name}.operator"]), p["alpha"]))
+            # folded overlays: rgb = rgb * (1 - a) + ov * a, alpha kept
+            for name, planes, rect in mixes:
+                draws.append(Draw(planes, rect[0], rect[1], rect, OP_OVER,
+                                  float(params[f"fold.{name}.alpha"]),
+                                  keep_alpha=True))
             canvas = composite_fold(out_h, out_w, Background(colors, bg_drawn),
                                     draws, device)
             return convert.pack_rgba(canvas, out_format, matrix_out), state

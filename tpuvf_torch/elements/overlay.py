@@ -18,10 +18,12 @@ At build time the image is resampled to its rect on the host
 frame's float32 RGBA (the uint8 planes for RGB inputs, which the kernel
 dequantizes; the emit K2 to float32 for YUV inputs, as tpuvf blends the
 unquantized ``yuv_to_rgb``), the rect blend and quantize K6, the output
-pack.  After a vfcompositor the overlay runs as this separate stage; tpuvf
-folds it into the composite, which for an RGB output gives the same values
-(``tpuvf/runtime/pipeline.py:541-554``).  tpuvf's split/quad/grid link
-bodies are TPU layouts and are not ported.
+pack.  After a vfcompositor with an RGB output the pipeline folds the
+overlay into the compositor's K4 launch as a final mix draw
+(`fold_into_aggregate_ok`, `fold_rect`; ``tpuvf/runtime/pipeline.py:
+541-606``) and this stage is a passthrough; after a YUV output it runs
+here, as tpuvf runs it.  tpuvf's split/quad/grid link bodies are TPU
+layouts and are not ported.
 """
 
 from __future__ import annotations
@@ -139,12 +141,28 @@ class Overlay(Element):
         return (ox, oy, float(self.props.get("width") or img_w),
                 float(self.props.get("height") or img_h))
 
+    def fold_into_aggregate_ok(self, in_spec, out_spec) -> bool:
+        """Whether this overlay can be a final mix draw of an upstream
+        compositor's fold: an image is loaded and the overlay keeps format
+        and size (tpuvf/elements/overlay.py:250-260)."""
+        self._sync_image()
+        return (self._image is not None
+                and in_spec.format == out_spec.format
+                and in_spec.width == out_spec.width
+                and in_spec.height == out_spec.height)
+
+    def fold_rect(self, spec: FrameSpec):
+        """-> (rect (x0, x1, y0, y1), (4, h, w) float32 planes): the
+        premultiplied image resampled to its rect on a frame of `spec`
+        (tpuvf's `fold_draw_config`)."""
+        self._sync_image()
+        return overlay_rect(self._image, spec.width, spec.height,
+                            *self.placement(spec))
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
                      device):
-        self._sync_image()
+        rect, planes_np = self.fold_rect(in_spec)
         w, h = in_spec.width, in_spec.height
-        rect, planes_np = overlay_rect(self._image, w, h,
-                                       *self.placement(in_spec))
         ov = torch.from_numpy(planes_np).to(device)
         rgb_in = in_spec.format in RGB_FORMATS
         sampler = None if rgb_in else convert.plan_rgba_sampler(

@@ -66,8 +66,12 @@ SIGNATURES = {
     "emit_vector_path": [_P, _I, _P, _P, _P, _I, _I, _I],
     # in, table, size, pixels, out, quantize, stream
     "lut3d_trilinear_f32": [_P, _P, _I, _I, _P, _I, _P],
+    # in, out, size, pixels, quantize
+    "lut3d_path": [_P, _P, _I, _I, _I],
     # params (host FoldParams), out, stream
     "composite_fold": [_P, _P, _P],
+    # src, src_f32, width, x
+    "composite_draw_vector_path": [_P, _I, _I, _I],
     # cur, prev, out, threshold, height, width, method, tff, stream
     "deinterlace_u8": [_P] * 4 + [_I] * 4 + [_P],
     # src, src_f32, out, height, width, ov, x0, x1, y0, y1, alpha, stream

@@ -18,7 +18,12 @@ and clipped to a rect inside the canvas.  Per draw and pixel of its rect::
     dst = quant(blended)
 
 with ``k = f32(alpha) * draw``.  Outside every rect the canvas keeps the
-background (or 0 where the background is not drawn).
+background (or 0 where the background is not drawn).  A draw with
+`keep_alpha` blends channels 0-2 and leaves the canvas's alpha: with OVER
+and ``k`` the overlay's alpha it is a folded vfoverlay's mix draw, tpuvf's
+``quant(dequant(v) * (1 - a) + ov * a)``, ``a = ov_3 * alpha``
+(``tpuvf/elements/compositor.py:676-686``), on the overlay's float32 rect
+planes (`overlay.overlay_rect`).
 
 On a CUDA canvas device `composite_fold` launches the hand-written kernel
 ``composite_fold`` (``csrc/composite.cu``) on the current stream, one launch
@@ -26,7 +31,10 @@ per `MAX_DRAWS` draws, each later launch folding onto the canvas the one
 before wrote; on the CPU it calls `composite_fold_plain`, the same fold in
 torch ops, op for op as tpuvf's ``render_fast``.  There is no other path: a
 CUDA launch that fails raises.  The kernel is bitwise equal to the plain
-version (no FMA contraction on either side).
+version (no FMA contraction on either side).  It folds 4 pixels of a row a
+thread; each draw's source is read 4 pixels at a time where
+`draw_vector_path` holds (the launcher's rule, mirrored here), else pixel
+by pixel.
 
 The wrapper counts its kernel launches in ``composite_fold.launches``.
 """
@@ -65,6 +73,7 @@ class Draw(NamedTuple):
     op: int  # OP_SOURCE, OP_OVER or OP_ADD
     k: float  # f32(alpha) * draw, a Python float holding a float32 value
     draw: int = 1  # the draw flag (SOURCE keeps the canvas where it is 0)
+    keep_alpha: bool = False  # blend channels 0-2 only (the overlay mix)
 
 
 def background_colors(mode_rgba: Sequence) -> tuple:
@@ -103,7 +112,7 @@ def composite_fold_plain(height: int, width: int, background: Background,
         s = as_float(d.src[:, y0 - d.y:y1 - d.y, x0 - d.x:x1 - d.x])
         s_a = s[3] * d.k
         src = (s[0] * s_a, s[1] * s_a, s[2] * s_a, s_a)
-        for c in range(4):
+        for c in range(3 if d.keep_alpha else 4):
             dst_v = dequant(dst[c, y0:y1, x0:x1])
             if d.op == OP_SOURCE:
                 blended = src[c] if d.draw > 0 else dst_v
@@ -127,7 +136,8 @@ class DrawDesc(ctypes.Structure):
                 ("x0", ctypes.c_int), ("y0", ctypes.c_int),
                 ("x1", ctypes.c_int), ("y1", ctypes.c_int),
                 ("op", ctypes.c_int), ("k", ctypes.c_float),
-                ("draw", ctypes.c_int)]
+                ("draw", ctypes.c_int), ("keep_alpha", ctypes.c_int),
+                ("vector", ctypes.c_int)]
 
 
 class FoldParams(ctypes.Structure):
@@ -181,7 +191,20 @@ def _fold_params(height, width, background, chunk, from_canvas) -> FoldParams:
         desc.x, desc.y = d.x, d.y
         desc.x0, desc.y0, desc.x1, desc.y1 = d.rect
         desc.op, desc.k, desc.draw = d.op, d.k, d.draw
+        desc.keep_alpha = int(d.keep_alpha)
     return p
+
+
+def draw_vector_path(d: Draw) -> bool:
+    """Whether K4 reads this draw's source 4 pixels at a time (one uchar4
+    or float4 a plane): the rule ``draw_vector`` of csrc/composite.cu, which
+    the launcher applies per draw.  The kernel's quads start on canvas
+    columns that are multiples of 4, so the placement must keep them
+    aligned in the source, every source row must start on a quad, and the
+    base must sit on the access (4 bytes uint8, 16 bytes float32)."""
+    access = 16 if d.src.dtype == torch.float32 else 4
+    return (d.x % 4 == 0 and d.src.shape[2] % 4 == 0
+            and d.src.data_ptr() % access == 0)
 
 
 def composite_fold(height: int, width: int, background: Background,

@@ -269,6 +269,9 @@ def apply_lut_t_plain(chans, table: torch.Tensor, size: int):
         p = x * s1
         fl = torch.floor(p)
         f = p - fl
+        # NaN takes cell 0, as XLA's cast and the kernel's fmaxf do (its
+        # weights are NaN, so the pixel is NaN whichever cell it reads)
+        fl = torch.nan_to_num(fl, nan=0.0)
         return torch.clamp(fl, 0, size - 1).to(torch.int32), [1.0 - f, f]
 
     r0, w_fr = axis(r)

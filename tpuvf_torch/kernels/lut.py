@@ -9,6 +9,13 @@ stream; on a CPU tensor it calls `lut3d_plain`, which is
 path: a CUDA launch that fails raises.  The kernel is bitwise equal to its
 plain version.
 
+The launcher picks the table path from the size (`table_path`): up to
+`MAX_SHARED_SIZE` the node table is staged in shared memory
+(`PATH_SHARED`); above it each pixel gathers its packed corner row
+(`PATH_GATHER`); and 4 pixels a thread where the planes allow it.
+`lut3d_path` says which (csrc/lut.cu's header gives the design and what
+bounds it).
+
 The wrapper counts its kernel launches in ``lut3d.launches``.
 """
 
@@ -19,6 +26,19 @@ import torch
 from tpuvf_torch.kernels import _build
 from tpuvf_torch.kernels.color import quant
 from tpuvf_torch.kernels.filter import apply_lut_t_plain
+
+
+# csrc/lut.cu kPathGather, kPathShared
+PATH_GATHER, PATH_SHARED = 0, 1
+PATH_NAMES = {PATH_GATHER: "packed row gather",
+              PATH_SHARED: "shared-memory nodes"}
+MAX_SHARED_SIZE = 23  # csrc/lut.cu kMaxSharedSize: 23^3 float4 nodes
+
+
+def table_path(size: int) -> int:
+    """The table path the launcher takes for a size (csrc/lut.cu
+    `table_path`)."""
+    return PATH_SHARED if size <= MAX_SHARED_SIZE else PATH_GATHER
 
 
 def lut3d_plain(rgba: torch.Tensor, table: torch.Tensor, size: int,
@@ -73,3 +93,13 @@ def lut3d(rgba: torch.Tensor, table: torch.Tensor, size: int,
 
 
 lut3d.launches = 0
+
+
+def lut3d_path(rgba: torch.Tensor, out: torch.Tensor, size: int) -> str:
+    """The paths K3's launcher takes for these planes and this output (its
+    exported query), e.g. "shared-memory nodes, 4 pixels a thread"."""
+    code = _build.load().lut3d_path(rgba.data_ptr(), out.data_ptr(), size,
+                                    rgba.shape[1] * rgba.shape[2],
+                                    int(out.dtype == torch.uint8))
+    return (PATH_NAMES[code & 3]
+            + (", 4 pixels a thread" if code & 4 else ", 1 pixel a thread"))

@@ -49,9 +49,8 @@ def from_tpuvf(params: dict, state, device):
       ``operator`` (int32) Python ints, ``pad.<name>.alpha`` a Python float
       holding its float32 value.  Its ``__buf/bg`` background canvas is
       dropped with the other buffers (the port plans the background);
-      ``fold.*`` keys, a vfoverlay folded into tpuvf's compositor, raise
-      NotImplementedError: the port runs the overlay as its own element,
-      whose ``alpha`` carries over as any float scalar does;
+      ``fold.<name>.alpha``, the alpha of a vfoverlay folded into the
+      compositor, is a Python float holding its float32 value as well;
     - integer state (the frame counter) becomes a 0-dim int64 tensor whose
       value is the uint32 counter, which the port increments modulo 2**32;
     - vfdeinterlace's state: ``prev``, tpuvf's tuple of four (H, W) uint8
@@ -64,12 +63,7 @@ def from_tpuvf(params: dict, state, device):
         if key.startswith("__buf/"):
             continue
         arr = np.asarray(value)
-        if key.startswith("fold."):
-            raise NotImplementedError(
-                f"parameter {key!r}: the port does not fold a vfoverlay into "
-                f"the compositor; it runs the overlay as its own element "
-                f"(carry that element's params instead)")
-        if key.startswith("pad.") and arr.ndim == 0:
+        if key.startswith(("pad.", "fold.")) and arr.ndim == 0:
             if key.endswith(".alpha"):
                 out_params[key] = float(np.float32(arr))
                 continue

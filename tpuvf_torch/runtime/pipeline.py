@@ -24,10 +24,17 @@
   while it stays picked; the sink gets every output frame back in its host
   byte layout.
 
+- **Overlay folds**: a vfoverlay that follows a vfcompositor with an RGB
+  output (through passthrough elements) becomes a final mix draw of the
+  compositor's fold, and its own stage a passthrough (tpuvf's
+  ``_plan_overlay_folds``).
+- **Rebuilds** keep each element's carried state whose structure and
+  tensor shapes still match (tpuvf's rule), so a property write that
+  rebuilds does not restart a grain counter or drop a previous frame.
+
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
 available; nothing falls back to the CPU.  One sink at most; tee and
-multi-sink, batched and live runs, controllers, navigation, overlay folds
-(a vfoverlay after a compositor runs as its own stage) and tpuvf's
+multi-sink, batched and live runs, controllers, navigation and tpuvf's
 split/quad/grid link layouts are not ported.
 """
 
@@ -96,6 +103,23 @@ def _is_aggregator(element) -> bool:
     from tpuvf_torch.elements.compositor import Compositor  # circular-safe
 
     return isinstance(element, Compositor)
+
+
+def same_layout(old, new) -> bool:
+    """Whether carried state `old` can stand in for a fresh `new`: the same
+    nesting (dict keys, tuple and list lengths) and every leaf's shape the
+    same (a tensor's, or () for a Python number), as tpuvf compares its
+    state pytrees (``tpuvf/runtime/pipeline.py:311-327``)."""
+    if isinstance(new, dict) or isinstance(old, dict):
+        return (isinstance(new, dict) and isinstance(old, dict)
+                and old.keys() == new.keys()
+                and all(same_layout(old[k], new[k]) for k in new))
+    if isinstance(new, (tuple, list)) or isinstance(old, (tuple, list)):
+        return (type(old) is type(new) and len(old) == len(new)
+                and all(same_layout(a, b) for a, b in zip(old, new)))
+    if old is None or new is None:
+        return old is None and new is None
+    return tuple(getattr(old, "shape", ())) == tuple(getattr(new, "shape", ()))
 
 
 class Pipeline:
@@ -234,11 +258,51 @@ class Pipeline:
                         e.is_passthrough(st.in_spec, st.out_spec)))
         return tuple(sig)
 
+    def _plan_overlay_folds(self) -> Dict[str, List[Element]]:
+        """{compositor name: [vfoverlay, ...]} for each ``vfcompositor !
+        (passthroughs) ! vfoverlay`` chain whose overlay rect blends run as
+        final mix draws of the compositor's fold (port of tpuvf's
+        ``_plan_overlay_folds``, ``tpuvf/runtime/pipeline.py:541-606``,
+        without its link layouts).  The compositor has one outgoing link
+        and an RGB output (for a YUV output the separate overlay mixes after
+        the YUV round trip: other values); the walk goes through
+        passthrough elements and foldable overlays (image loaded, same
+        format and size in and out) and stops at anything else, an overlay
+        that cannot fold included."""
+        from tpuvf_torch.core.formats import RGB_FORMATS
+        from tpuvf_torch.elements.overlay import Overlay
+
+        folds: Dict[str, List[Element]] = {}
+        for e in self.elements:
+            outs = self._outgoing(e)
+            if (not _is_aggregator(e) or len(outs) != 1
+                    or outs[0].spec.format not in RGB_FORMATS):
+                continue
+            chain, node = [], outs[0].downstream
+            while True:
+                ins, nouts = self._incoming(node), self._outgoing(node)
+                if len(ins) != 1 or len(nouts) != 1:
+                    break
+                i_s, o_s = ins[0].spec, nouts[0].spec
+                if isinstance(node, Overlay):
+                    if not node.fold_into_aggregate_ok(i_s, o_s):
+                        break
+                    chain.append(node)
+                elif (isinstance(node, (SourceElement, SinkElement))
+                        or not node.is_passthrough(i_s, o_s)):
+                    break
+                node = nouts[0].downstream
+            if chain:
+                folds[e.name] = chain
+        return folds
+
     def build(self) -> None:
         if not self._negotiated:
             self.negotiate()
         stages: List[Stage] = []
         state: Dict[str, object] = {}
+        folds = self._plan_overlay_folds()
+        folded = {id(ov) for chain in folds.values() for ov in chain}
         for e in self._topo_order():
             if isinstance(e, (SourceElement, SinkElement)):
                 continue
@@ -246,12 +310,15 @@ class Pipeline:
             if _is_aggregator(e):
                 pad_specs = {ln.sink_pad: ln.spec for ln in sorted(
                     self._incoming(e), key=lambda ln: ln.sink_pad)}
-                process = e.make_aggregate(pad_specs, out_spec, self.device)
+                process = e.make_aggregate(
+                    pad_specs, out_spec, self.device,
+                    fold_overlays=tuple(folds.get(e.name, ())))
                 stages.append(Stage(e, None, out_spec, False, process))
                 state[e.name] = e.init_state(None, out_spec, self.device)
                 continue
             in_spec = self._incoming(e)[0].spec
-            if e.is_passthrough(in_spec, out_spec):
+            if id(e) in folded or e.is_passthrough(in_spec, out_spec):
+                # a folded overlay blends inside the compositor's fold
                 stages.append(Stage(e, in_spec, out_spec, True))
                 continue
             process = e.make_process(
@@ -259,6 +326,11 @@ class Pipeline:
                 self.device)
             stages.append(Stage(e, in_spec, out_spec, False, process))
             state[e.name] = e.init_state(in_spec, out_spec, self.device)
+        # a rebuild keeps carried state that still fits (a grain counter, a
+        # previous frame), on the device where it lies
+        for name, old in (self.state or {}).items():
+            if name in state and same_layout(old, state[name]):
+                state[name] = old
         self.stages = stages
         self.state = state
         self._built_signature = self._static_signature()
