@@ -46,14 +46,27 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    and more draws than one launch holds; each line names each draw's path
    (the launcher's rule, held to the Python mirror); its device time is
    also read from torch.profiler;
-   K5 (deinterlace_u8, vfdeinterlace's field kernel) against
-   deinterlace_plain at 1080p RGBA8, bitwise: bob, weave and greedy-H,
-   tff True/False, with and without a previous frame, threshold 0.3, and
-   a band whose motion equals the threshold exactly (it must take bob);
-   K6 (overlay_blend_u8, vfoverlay's rect blend) against
-   overlay_blend_plain, bitwise: config 5's 4K uint8 canvas with the
-   256x256 red PNG at (128, 128), a 1080p float32 frame with a stretched
-   640x360 rect partly off-frame at relative-x 0.8, and an empty rect;
+   K5 (deinterlace_frame: deinterlace_yuv420_u8 and deinterlace_u8,
+   vfdeinterlace's whole body in one launch) against
+   deinterlace_frame_plain, bitwise on the output planes and the texture
+   carried to the next frame: I420 in -> I420 or RGBA out and RGBA in ->
+   RGBA or I420 out, bob, weave and greedy-H, tff True/False, with and
+   without a previous frame, threshold 0.3, BT.601 in -> BT.709 out,
+   1919x1079 crops (the scalar path), and a band whose motion equals the
+   threshold exactly (it must take bob); at chain (g)'s I420 greedy-H shape
+   also the device time of the launches the route replaced (the parent's
+   K1, K1b, K2, field kernel and plain pack, this run), and chain (g')'s
+   BGRA weave beside its bound;
+   K6 (overlay_frame: overlay_yuv420_u8 and overlay_blend_u8, vfoverlay's
+   whole body in one launch) against overlay_frame_plain, bitwise: chain
+   (e')'s 4K NV12 frame with the 256x256 red PNG at (128, 128) (with the
+   device time of the launches it replaced: K1, K1b, K2 to float32, the
+   blend and the plain pack), 1080p I420 with a stretched 640x360 rect
+   partly off-frame at relative-x 0.8, an empty rect, alpha 0, BT.601 in
+   -> BT.709 out, a 1919x1079 crop (the scalar path), and the RGB route on
+   a 4K canvas, its 1919x1079 crop and an empty rect; each K5 and K6 line
+   names the launch's path (the kernel's template arguments as
+   torch.profiler names them, held to the wrapper module's `route`);
 4. the main paths through tpuvf_torch.cli.launch.parse_pipeline on "cuda",
    8 frames each: (a) appsrc NV12 1920x1080 -> vfmetalconvertscale -> BGRA
    640x480 -> vfmetalvideofilter b/c/s -> appsink; (b) the same at
@@ -65,19 +78,21 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    1080p, BGRA 720p at alpha 0.7, NV12 720p ADD) -> vfmetalcompositor ->
    BGRA 3840x2160 -> vfmetaloverlay of a 256x256 red PNG (alpha 128) at
    (128, 128), folded into K4 (K6 must not launch); (e') the same to NV12,
-   where the overlay does not fold and runs K6; (f) a checker composite to
-   NV12 1920x1080 of a scaled NV12
-   1080p pad at a negative position and a keep-aspect BGRA pad;
-   (g) BASELINE config 4: appsrc I420 1920x1080 interlaced ->
+   where the overlay does not fold and runs one K6 a frame and no sampler
+   or emit of its own; (f) a checker composite to NV12 1920x1080 of a
+   scaled NV12 1080p pad at a negative position and a keep-aspect BGRA
+   pad; (g) BASELINE config 4: appsrc I420 1920x1080 interlaced ->
    vfmetaldeinterlace greedy-H threshold 0.3 -> I420, a block moving over
-   still frames; (g') BGRA 1920x1080 weave with field-layout=auto and
-   each buffer's pushed TFF flag alternating; (h) BASELINE config 2:
+   still frames, one K5 a frame and no K1, K1b or K2; (g') BGRA 1920x1080
+   weave with field-layout=auto and each buffer's pushed TFF flag
+   alternating, one K5 a frame; (h) BASELINE config 2:
    appsrc BGRA 640x480 -> vfmetaltransform clockwise, crop-left 32,
    crop-top 16; (h') NV12 1920x1080 counterclockwise, crop-right 64 ->
    NV12; (h'') NV12 1920x1080 rotate-180 (the flip fast path).  The
    kernels' launch counters are set to 0 just before each run and read
-   just after; each kernel of the path must have grown, and a kernel the
-   path must not reach (K6 in (e)) must not have.
+   just after; each kernel of the path must have grown, a kernel the
+   path must not reach (K6 in (e), K1/K1b/K2 in (g)) must not have, and
+   K5 and K6 must have launched exactly once a frame where so stated.
    Frame 0 must be within 1 LSB of the same pipeline on the CPU;
    device-resident us/frame of the built step (CUDA events and the host
    clock), its device-busy us (torch.profiler) and idle share, and wall fps
@@ -197,7 +212,8 @@ def counters():
 
     return {"K1": resample.resample_rows, "K1b": resample.resample_cols,
             "K2": emit.emit, "K3": lut.lut3d, "K4": composite.composite_fold,
-            "K5": deinterlace.deinterlace, "K6": overlay.overlay_blend}
+            "K5": deinterlace.deinterlace_frame,
+            "K6": overlay.overlay_frame}
 
 
 def phase_card():
@@ -241,18 +257,23 @@ def record(summary, name, err, ms=None, plain_ms=None):
 # 700 W limit): HBM3 bandwidth, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float32 operations per output element, counted from each source's
-# arithmetic (2 mul + 1 add per 2-tap sample; the emit's yuv->rgb, b/c/s
-# fold, clamps and quant; the LUT's 8 corner weights and 24 products; a
-# blend per draw).  Every kernel here is far below its bytes bound in
-# operations, so the bound is the bytes bound.
+# float32 operations per output element at each kernel's JSON shape,
+# counted from each source's arithmetic (2 mul + 1 add per 2-tap sample;
+# the emit's yuv->rgb, b/c/s fold, clamps and quant; the LUT's 8 corner
+# weights and 24 products; a blend per draw; K5's and K6's 4:2:0 routes:
+# two 3-tap chroma samples and yuv->rgb per texel (1.5 texels a pixel for
+# K5), the field logic or the blend, quant, and the pack's rgb->yuv and quad
+# average).  K6's 4:2:0 route is bound by these operations; the others by
+# their bytes.
 OPS_PER_ELEMENT = {"K1": 3, "K1b": 3, "K2": 60, "K3": 90, "K4": 30,
-                   "K5": 30, "K6": 20}
+                   "K5": 146, "K6": 90}
 # the kernels' names as torch.profiler lists them
 KERNEL_NAMES = {"K1": "resample_rows_kernel", "K1b": "resample_cols_kernel",
                 "K2": "emit_kernel", "K3": "lut3d_kernel",
-                "K4": "composite_fold_kernel", "K5": "deinterlace_kernel",
-                "K6": "overlay_blend_kernel"}
+                "K4": "composite_fold_kernel",
+                "K5": "deinterlace_pair_kernel",
+                # overlay_yuv420_kernel (4:2:0) and overlay_blend_kernel (RGB)
+                "K6": "overlay_"}
 
 
 def moved_bytes(*tensors) -> int:
@@ -273,10 +294,11 @@ def lut_rows_bytes(x, size) -> int:
     return int(torch.unique((b * size + g) * size + r).numel()) * 24 * 4
 
 
-def bound_us(label, nbytes, elements):
-    """The least time the card could take: -> (us, "bytes"/"operations")."""
+def bound_us(label, nbytes, elements, ops=None):
+    """The least time the card could take: -> (us, "bytes"/"operations");
+    `ops` per element where the case is not the JSON shape's."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    by_ops = OPS_PER_ELEMENT[label] * elements / F32_OPS_PER_S * 1e6
+    by_ops = (ops or OPS_PER_ELEMENT[label]) * elements / F32_OPS_PER_S * 1e6
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                              "operations")
 
@@ -294,13 +316,13 @@ def kernel_device_us(fn, label, reps: int = 20) -> float:
 
 
 def roofline(summary, label, fn, nbytes, elements, library_ms=None,
-             case=None):
+             case=None, ops=None):
     """Device time of the kernel beside its bound.  The headline case of a
     kernel (case None: chip_smoke's JSON line) is stored in `summary`;
     another case prints its own before/after.  -> text."""
     dev = kernel_device_us(fn, label)
-    bound, by = bound_us(label, nbytes, elements)
-    text = (f" | device {dev:.1f} us, bound {bound:.1f} us "
+    bound, by = bound_us(label, nbytes, elements, ops)
+    text = (f" | device {dev:.1f} us, bound {bound:.1f} us by {by} "
             f"({nbytes / 1e6:.1f} MB), {bound / dev:.0%} of it")
     if case is None:
         summary.setdefault(label, {"max_abs_err": 0.0}).update(
@@ -884,6 +906,84 @@ def phase_composite(summary, tmp):
         record(summary, "K4", err, ms if i == 0 else None, plain_ms)
 
 
+def u8_planes(gen, fmt, w, h):
+    """Random uint8 planes of a w x h frame on the card: {"rgba"} or 4:2:0
+    {"y", "u", "v"}."""
+    import torch
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    if fmt == "RGBA":
+        return {"rgba": u8(4, h, w)}
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    return {"y": u8(h, w), "u": u8(ch, cw), "v": u8(ch, cw)}
+
+
+def crop_planes(planes, w, h):
+    """The top-left w x h crop of a frame's planes, contiguous."""
+    if "rgba" in planes:
+        return {"rgba": planes["rgba"][:, :h, :w].contiguous()}
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    return {"y": planes["y"][:h, :w].contiguous(),
+            "u": planes["u"][:ch, :cw].contiguous(),
+            "v": planes["v"][:ch, :cw].contiguous()}
+
+
+def planes_equal(got, want) -> float:
+    """-> max |diff| over the planes' dicts (or tensors); fails on a key or
+    shape mismatch."""
+    if not isinstance(got, dict):
+        got, want = {"": got}, {"": want}
+    if set(got) != set(want):
+        fail(f"planes {sorted(got)} vs {sorted(want)}")
+    err = 0.0
+    for k in want:
+        if got[k].shape != want[k].shape or got[k].dtype != want[k].dtype:
+            fail(f"plane {k}: {got[k].dtype}{tuple(got[k].shape)} vs "
+                 f"{want[k].dtype}{tuple(want[k].shape)}")
+        err = max(err, float((got[k].float() - want[k].float()).abs().max()))
+    return err
+
+
+def launched_path(fn, label):
+    """(columns a thread, vector path) of the one kernel `label` that fn()
+    launches, read off its template arguments as torch.profiler names it
+    (deinterlace_pair_kernel<kCols, kVec, ...>, overlay_yuv420_kernel<kCols,
+    kVec>, overlay_blend_kernel<kVec>: 16 or 1 columns)."""
+    import re
+
+    names = {e.key for e in profiled(fn, 1) if KERNEL_NAMES[label] in e.key}
+    if len(names) != 1:
+        fail(f"{label}: expected one kernel, torch.profiler saw {names}")
+    name = names.pop()
+    m = re.search(r"<(\d+), (true|false)", name)
+    if m:
+        return int(m.group(1)), m.group(2) == "true"
+    vec = re.search(r"<(true|false)>", name).group(1) == "true"
+    return (16 if vec else 1), vec
+
+
+def path_text(fn, label, mirror) -> str:
+    """The launch's path, held to the wrapper module's mirror of the
+    launcher's rule (`route`: columns a thread, vector path)."""
+    cols, vec = launched_path(fn, label)
+    if (cols, vec) != tuple(mirror):
+        fail(f"{label}: the launcher took {cols} columns a thread "
+             f"(vector path {vec}), the mirror says {mirror}")
+    return f"{'vector' if vec else 'scalar'} path, {cols} columns a thread"
+
+
+def replaced_text(fn) -> tuple:
+    """Device time of the launches a fused route replaced (the parent's
+    route at this shape) -> (us, text with its largest kernels)."""
+    us, per = device_breakdown(fn)
+    top = ", ".join(f"{name[:32]} {t:.1f}" for name, t in per[:4])
+    return us, (f" | the launches it replaces (parent's route, this run): "
+                f"{us:.1f} us device, {len(per)} kernels ({top})")
+
+
 def tie_threshold():
     """A float32 threshold that a motion of one channel's 200 - 100 step
     equals exactly: sqrt(d * d) == |d| in IEEE round to nearest."""
@@ -893,64 +993,157 @@ def tie_threshold():
     return float(np.float32(200) * inv - np.float32(100) * inv)
 
 
-def phase_deinterlace(summary):
-    """K5 against deinterlace_plain at 1080p RGBA8; the JSON times are
-    greedy-H's with a previous frame (chain (g))."""
+def deinterlace_cases(gen):
+    """[(label, planes, taps, prev, method, tff, has_prev, threshold,
+    matrix_in, out format, matrix_out)] for K5, the JSON case first."""
     import torch
 
-    from tpuvf_torch.kernels import deinterlace as kd
+    from tpuvf_torch.core.formats import VideoFormat as F
+    from tpuvf_torch.core.spec import FrameSpec
+    from tpuvf_torch.kernels import convert, deinterlace as kd, emit
+    from tpuvf_torch.kernels.sample import NEAREST
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    cur = torch.randint(0, 256, (4, 1080, 1920), generator=gen, device="cuda",
-                        dtype=torch.uint8)
-    prev = cur.clone()
-    prev[:, :, 960:] = torch.randint(0, 256, (4, 1080, 960), generator=gen,
-                                     device="cuda", dtype=torch.uint8)
-    thr = torch.tensor(0.3, device="cuda")
-    cases = [(m, tff, has_prev, thr) for m in (kd.METHOD_BOB, kd.METHOD_WEAVE,
-                                               kd.METHOD_GREEDYH)
-             for tff in (True, False) for has_prev in (True, False)]
-    # the knife edge: half the discarded pixels of a band move by exactly the
-    # threshold (R 200 vs 100), the other half by one step less
-    tie_cur, tie_prev = cur.clone(), cur.clone()
-    tie_cur[0, :, :480], tie_prev[0, :, :480] = 200, 100
-    tie_cur[0, :, :240] = 199
-    tie = torch.tensor(tie_threshold(), device="cuda")
+    w, h = 1920, 1080
     names = {kd.METHOD_BOB: "bob", kd.METHOD_WEAVE: "weave",
              kd.METHOD_GREEDYH: "greedy-H"}
-    for i, (method, tff, has_prev, t) in enumerate(
-            cases + [(kd.METHOD_GREEDYH, True, True, tie)]):
-        c, p = (tie_cur, tie_prev) if t is tie else (cur, prev)
-        args = (c, p, method, tff, has_prev, t)
-        got = kd.deinterlace(*args)
-        want = kd.deinterlace_plain(*args)
+    thr = torch.tensor(0.3, device="cuda")
+
+    def inputs(fmt, w, h, planes=None):
+        """(planes, taps, prev): prev is the planes' own texture on the
+        left half (still: weave) and noise on the right (motion: bob)."""
+        planes = planes or u8_planes(gen, fmt, w, h)
+        taps = None
+        if fmt == "RGBA":
+            tex = planes["rgba"]
+        else:
+            taps = convert.plan_chroma_taps(FrameSpec(F.I420, w, h), "cuda",
+                                            NEAREST)
+            tex = emit.emit_plain(convert.sample_yuv420_plain(planes, taps),
+                                  0)
+        prev = tex.clone()
+        prev[:, :, w // 2:] = u8_planes(gen, "RGBA", w - w // 2, h)["rgba"]
+        return planes, taps, prev
+
+    yuv, rgb = inputs("I420", w, h), inputs("RGBA", w, h)
+    cases = [("(g) I420 1080p greedy-H tff, has prev -> I420", *yuv,
+              kd.METHOD_GREEDYH, True, True, thr, 0, F.I420, 0)]
+    for kind, (planes, taps, prev), out in (("I420", yuv, F.I420),
+                                            ("RGBA", rgb, F.RGBA)):
+        for m in names:
+            for tff in (True, False):
+                for has_prev in (True, False):
+                    cases.append((f"{kind} 1080p {names[m]} tff={tff} "
+                                  f"has_prev={has_prev} -> {out.value}",
+                                  planes, taps, prev, m, tff, has_prev, thr,
+                                  0, out, 0))
+    cases += [
+        ("I420 1080p greedy-H -> RGBA", *yuv, kd.METHOD_GREEDYH, True, True,
+         thr, 0, F.RGBA, 0),
+        ("I420 1080p bob bff -> RGBA", *yuv, kd.METHOD_BOB, False, False,
+         thr, 0, F.RGBA, 0),
+        ("I420 1080p weave, BT.601 in -> BT.709 out", *yuv, kd.METHOD_WEAVE,
+         False, True, thr, 0, F.I420, 1),
+        ("RGBA 1080p greedy-H -> I420", *rgb, kd.METHOD_GREEDYH, True, True,
+         thr, 0, F.I420, 0),
+    ]
+    crop_yuv = inputs("I420", 1919, 1079, crop_planes(yuv[0], 1919, 1079))
+    crop_rgb = inputs("RGBA", 1919, 1079, crop_planes(rgb[0], 1919, 1079))
+    cases += [
+        ("I420 1919x1079 greedy-H bff -> I420", *crop_yuv, kd.METHOD_GREEDYH,
+         False, True, thr, 0, F.I420, 0),
+        ("I420 1919x1079 bob -> RGBA", *crop_yuv, kd.METHOD_BOB, True, False,
+         thr, 0, F.RGBA, 0),
+        ("RGBA 1919x1079 greedy-H tff -> RGBA", *crop_rgb, kd.METHOD_GREEDYH,
+         True, True, thr, 0, F.RGBA, 0),
+        ("RGBA 1919x1079 weave bff -> I420", *crop_rgb, kd.METHOD_WEAVE,
+         False, True, thr, 0, F.I420, 1),
+    ]
+    # the knife edge: half the discarded pixels of a band move by exactly
+    # the threshold (R 200 vs 100), the other half by one step less
+    tie_cur, tie_prev = rgb[0]["rgba"].clone(), rgb[0]["rgba"].clone()
+    tie_cur[0, :, :480], tie_prev[0, :, :480] = 200, 100
+    tie_cur[0, :, :240] = 199
+    cases.append(("RGBA 1080p greedy-H threshold tie", {"rgba": tie_cur},
+                  None, tie_prev, kd.METHOD_GREEDYH, True, True,
+                  torch.tensor(tie_threshold(), device="cuda"), 0, F.RGBA,
+                  0))
+    return cases
+
+
+def phase_deinterlace(summary):
+    """K5 (deinterlace_frame) against deinterlace_frame_plain on every route:
+    4:2:0 in -> 4:2:0 or RGBA out, RGB in -> RGBA or 4:2:0 out, each at
+    1080p (vector path) and on a 1919x1079 crop (scalar path), the tie band;
+    the JSON times are chain (g)'s I420 greedy-H, and chain (g')'s BGRA
+    weave is timed beside its bound too."""
+    import torch
+
+    from tpuvf_torch.core.formats import VideoFormat as F
+    from tpuvf_torch.core.spec import FrameSpec
+    from tpuvf_torch.kernels import convert, deinterlace as kd, emit
+    from tpuvf_torch.kernels.sample import NEAREST
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for i, (label, planes, taps, prev, method, tff, has_prev, t, mi, fmt,
+            mo) in enumerate(deinterlace_cases(gen)):
+        args = (planes, prev, method, tff, has_prev, t, taps, mi, fmt, mo)
+        got, got_tex = kd.deinterlace_frame(*args)
+        want, want_tex = kd.deinterlace_frame_plain(*args)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        label = (f"1080p {names[method]} tff={tff} has_prev={has_prev}"
-                 + (" threshold tie" if t is tie else " threshold 0.3"))
-        if not torch.equal(got, want):
-            fail(f"K5 {label}: kernel != deinterlace_plain (max |diff| "
+        err = planes_equal(got, want)
+        if (got_tex is None) != (want_tex is None):
+            fail(f"K5 {label}: a texture on one side only")
+        if got_tex is not None:
+            err = max(err, planes_equal(got_tex, want_tex))
+        if err or not all(torch.equal(got[k], want[k]) for k in want) or (
+                got_tex is not None and not torch.equal(got_tex, want_tex)):
+            fail(f"K5 {label}: kernel != deinterlace_frame_plain (max |diff| "
                  f"{err})")
-        if t is tie:
-            prev_taken = (got[:, 1::2, :480] == p[:, 1::2, :480]).all(0)
+        if "tie" in label:
+            o, p = got["rgba"], prev
+            prev_taken = (o[:, 1::2, :480] == p[:, 1::2, :480]).all(0)
             if not (prev_taken[:, :240].all() and
                     not prev_taken[:, 240:].any()):
                 fail("K5 threshold tie: motion == threshold did not take bob")
-        timed = method == kd.METHOD_GREEDYH and tff and has_prev and t is thr
+
+        def run(args=args):
+            return kd.deinterlace_frame(*args)
+
+        note = " | " + path_text(run, "K5", kd.route(planes, prev))
         ms = plain_ms = None
-        note = ""
-        if timed or i == 0 or t is tie:
-            ms = cuda_ms(lambda: kd.deinterlace(*args))
-            plain_ms = cuda_ms(lambda: kd.deinterlace_plain(*args))
-            note = f" | kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
-        if timed:  # greedy-H reads prev only on the rows it rebuilds
-            plain_dev_us = profiled_us(lambda: kd.deinterlace_plain(*args))
-            note += roofline(summary, "K5", lambda: kd.deinterlace(*args),
-                             moved_bytes(c, got) + moved_bytes(p) // 2,
-                             c[0].numel())
-            note += f" | plain device {plain_dev_us:.1f} us"
-        print(f"[3 K5] {label}: torch.equal OK{note}", flush=True)
-        record(summary, "K5", err, ms if timed else None, plain_ms)
+        g_prime = label == "RGBA 1080p weave tff=True has_prev=True -> RGBA"
+        if i == 0 or g_prime or "1919" in label:
+            ms = cuda_ms(run)
+            plain_ms = cuda_ms(lambda: kd.deinterlace_frame_plain(*args))
+            note += (f" | kernel {ms * 1e3:.1f} us, plain "
+                     f"{plain_ms * 1e3:.1f} us")
+        # the bytes: the input planes, prev on the rebuilt rows, the
+        # texture written for the next frame (4:2:0 in), the output
+        nbytes = (moved_bytes(*planes.values(), *got.values())
+                  + (moved_bytes(prev) // 2 if has_prev else 0)
+                  + (moved_bytes(got_tex) if "y" in planes and got_tex
+                     is not None else 0))
+        h, w = prev.shape[1:]
+        if i == 0:  # chain (g): roofline, and the launches it replaces
+            note += roofline(summary, "K5", run, nbytes, h * w)
+            sampler = convert.plan_rgba_sampler(FrameSpec(F.I420, w, h),
+                                                w, h, "cuda", filter=NEAREST)
+
+            def parent(args=args):  # K1, K1b, K2, the field kernel, the pack
+                cur = emit.emit(sampler(planes), mi)
+                return convert.pack_rgba(
+                    kd.deinterlace(cur, prev, method, tff, has_prev, t),
+                    fmt, mo)
+
+            summary["K5"]["replaced_us"], text = replaced_text(parent)
+            note += text
+        elif g_prime:  # chain (g'): the RGB route beside its bound
+            note += roofline(summary, "K5", run, nbytes, h * w, ops=30,
+                             case="(g') BGRA 1080p weave")
+        print(f"[3 K5] {label}: torch.equal OK (planes"
+              f"{' and texture' if got_tex is not None else ''}){note}",
+              flush=True)
+        record(summary, "K5", err, ms if i == 0 else None, plain_ms)
 
 
 def red_png(path, size=256, alpha=128):
@@ -981,14 +1174,15 @@ def write_png(path, rgba):
     return str(path)
 
 
-def phase_overlay(summary, tmp):
-    """K6 against overlay_blend_plain; the JSON times are config 5's shape
-    (chain (e))."""
+def overlay_cases(gen, tmp):
+    """[(label, planes, taps, image, placement, alpha, matrix_in,
+    matrix_out)] for K6, the JSON case first."""
     import numpy as np
-    import torch
 
+    from tpuvf_torch.core.formats import VideoFormat as F
+    from tpuvf_torch.core.spec import FrameSpec
     from tpuvf_torch.io import png
-    from tpuvf_torch.kernels import overlay as ko
+    from tpuvf_torch.kernels import convert
 
     red = png.decode_premultiplied(
         Path(red_png(Path(tmp) / "red.png")).read_bytes())
@@ -996,42 +1190,95 @@ def phase_overlay(summary, tmp):
     art = rng.integers(0, 256, (120, 200, 4), dtype=np.uint8)
     art = png.decode_premultiplied(
         Path(write_png(Path(tmp) / "art.png", art)).read_bytes())
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    canvas = torch.randint(0, 256, (4, 2160, 3840), generator=gen,
-                           device="cuda", dtype=torch.uint8)
-    frame = torch.rand((4, 1080, 1920), generator=gen, device="cuda")
-    frame[3] = 1.0
-    cases = [
-        ("config 5 shape: 4K u8 canvas, 256x256 red alpha 128 at (128, 128)",
-         canvas, red, (128.0, 128.0, 256.0, 256.0), 1.0),
-        ("1080p f32, 200x120 stretched to 640x360 at relative-x 0.8 "
-         "(partly off-frame), alpha 0.75", frame, art,
-         (0.8 * 1920, 300.0, 640.0, 360.0), 0.75),
-        ("1080p f32, empty rect (off-frame)", frame, art,
-         (5000.0, 300.0, 640.0, 360.0), 1.0),
+
+    def yuv(planes, w, h):
+        return planes, convert.plan_chroma_taps(FrameSpec(F.NV12, w, h),
+                                                "cuda")
+
+    nv12_4k = yuv(u8_planes(gen, "I420", 3840, 2160), 3840, 2160)
+    i420 = yuv(u8_planes(gen, "I420", 1920, 1080), 1920, 1080)
+    crop = yuv(crop_planes(i420[0], 1919, 1079), 1919, 1079)
+    rgba_4k = u8_planes(gen, "RGBA", 3840, 2160)
+    stretched = (0.8 * 1920, 300.0, 640.0, 360.0)
+    return [
+        ("(e') 4K NV12, 256x256 red alpha 128 at (128, 128) -> NV12",
+         *nv12_4k, red, (128.0, 128.0, 256.0, 256.0), 1.0, 1, 1),
+        ("1080p I420, 200x120 stretched to 640x360 at relative-x 0.8 (partly "
+         "off-frame), alpha 0.75", *i420, art, stretched, 0.75, 1, 1),
+        ("1080p I420, empty rect (off-frame)", *i420, art,
+         (5000.0, 300.0, 640.0, 360.0), 1.0, 1, 1),
+        ("1080p I420, alpha 0", *i420, art, stretched, 0.0, 1, 1),
+        ("1080p I420, BT.601 in -> BT.709 out", *i420, art, stretched, 0.75,
+         0, 1),
+        ("1919x1079 I420 crop, partly off-frame rect", *crop, art,
+         (0.8 * 1919, 300.0, 640.0, 360.0), 0.75, 1, 1),
+        ("4K RGBA u8, 256x256 red alpha 128 at (128, 128)", rgba_4k, None,
+         red, (128.0, 128.0, 256.0, 256.0), 1.0, 0, 0),
+        ("1919x1079 RGBA crop, partly off-frame rect",
+         crop_planes(rgba_4k, 1919, 1079), None, art,
+         (0.8 * 1919, 300.0, 640.0, 360.0), 0.75, 0, 0),
+        ("4K RGBA u8, empty rect", rgba_4k, None, art,
+         (5000.0, 300.0, 640.0, 360.0), 1.0, 0, 0),
     ]
-    for i, (label, src, image, place, alpha) in enumerate(cases):
-        rect, planes = ko.overlay_rect(image, src.shape[2], src.shape[1],
-                                       *place)
-        args = (src, rect, torch.from_numpy(planes).cuda(),
-                torch.tensor(alpha, device="cuda"))
-        got = ko.overlay_blend(*args)
-        want = ko.overlay_blend_plain(*args)
+
+
+def phase_overlay(summary, tmp):
+    """K6 (overlay_frame) against overlay_frame_plain on both routes, 4:2:0
+    (vector and scalar path) and RGB (vector and scalar); the JSON times are
+    chain (e')'s 4K NV12 overlay."""
+    import torch
+
+    from tpuvf_torch.core.formats import VideoFormat as F
+    from tpuvf_torch.core.spec import FrameSpec
+    from tpuvf_torch.kernels import convert, emit, overlay as ko
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for i, (label, planes, taps, image, place, alpha, mi,
+            mo) in enumerate(overlay_cases(gen, tmp)):
+        x = planes.get("rgba", planes.get("y"))
+        h, w = x.shape[-2:]
+        rect, ov_np = ko.overlay_rect(image, w, h, *place)
+        ov = torch.from_numpy(ov_np).cuda()
+        args = (planes, taps, rect, ov,
+                torch.tensor(alpha, dtype=torch.float32, device="cuda"), mi,
+                mo)
+        got = ko.overlay_frame(*args)
+        want = ko.overlay_frame_plain(*args)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            fail(f"K6 {label}: kernel != overlay_blend_plain (max |diff| "
+        err = planes_equal(got, want)
+        if err or not all(torch.equal(got[k], want[k]) for k in want):
+            fail(f"K6 {label}: kernel != overlay_frame_plain (max |diff| "
                  f"{err})")
-        ms = cuda_ms(lambda: ko.overlay_blend(*args))
-        plain_ms = cuda_ms(lambda: ko.overlay_blend_plain(*args))
-        device = ""
-        if i == 0:
-            plain_dev_us = profiled_us(lambda: ko.overlay_blend_plain(*args))
-            device = roofline(summary, "K6", lambda: ko.overlay_blend(*args),
-                              moved_bytes(src, args[2], got), src[0].numel())
-            device += f" | plain device {plain_dev_us:.1f} us"
-        print(f"[3 K6] {label}, rect {rect}: torch.equal OK | kernel "
-              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us{device}",
+
+        def run(args=args):
+            return ko.overlay_frame(*args)
+
+        note = " | " + path_text(run, "K6", ko.route(planes))
+        ms = plain_ms = None
+        if i == 0 or "1919" in label or "4K RGBA u8, 256" in label:
+            ms = cuda_ms(run)
+            plain_ms = cuda_ms(lambda: ko.overlay_frame_plain(*args))
+            note += (f" | kernel {ms * 1e3:.1f} us, plain "
+                     f"{plain_ms * 1e3:.1f} us")
+        nbytes = moved_bytes(*planes.values(), ov, *got.values())
+        if i == 0:  # chain (e'): roofline, and the launches it replaces
+            note += roofline(summary, "K6", run, nbytes, h * w)
+            sampler = convert.plan_rgba_sampler(FrameSpec(F.NV12, w, h), w,
+                                                h, "cuda")
+
+            def parent(args=args):  # K1, K1b, K2 -> f32, the blend, the pack
+                src = emit.emit(sampler(planes), mi, out_float=True)
+                return convert.pack_rgba(
+                    ko.overlay_blend_plain(src, rect, ov, args[4]), F.NV12,
+                    mo)
+
+            summary["K6"]["replaced_us"], text = replaced_text(parent)
+            note += text + (" (its blend is the plain torch one: the float32"
+                            " K6 route is gone)")
+        elif "4K RGBA u8, 256" in label:  # the RGB route beside its bound
+            note += roofline(summary, "K6", run, nbytes, h * w, ops=20,
+                             case="4K RGBA u8 canvas")
+        print(f"[3 K6] {label}, rect {rect}: torch.equal OK{note}",
               flush=True)
         record(summary, "K6", err, ms if i == 0 else None, plain_ms)
 
@@ -1093,8 +1340,8 @@ def _planes(frame):
 
 def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     """Drive one main path on the card, fed {appsrc name: frames}; every
-    kernel of `expect` must launch, and none of it written "!K6" may;
-    -> {kernel: launches}."""
+    kernel of `expect` must launch, none of it written "!K6" may, and one
+    written "K6=8" must launch exactly that often; -> {kernel: launches}."""
     import numpy as np
     import torch
 
@@ -1108,7 +1355,13 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     launches = {k: w.launches for k, w in wrappers.items()}
     if n != len(frames):
         fail(f"{label}: ran {n} of {len(frames)} frames")
-    missing = [k for k in expect if k[0] != "!" and launches[k] == 0]
+    exact = dict(k.split("=") for k in expect if "=" in k)
+    wrong = {k: launches[k] for k, n in exact.items() if launches[k] != int(n)}
+    if wrong:
+        fail(f"{label}: launch counters {launches}; expected exactly "
+             f"{exact}")
+    missing = [k for k in expect
+               if k[0] != "!" and "=" not in k and launches[k] == 0]
     if missing:
         fail(f"{label}: launch counters {launches}; the path did not reach "
              f"{', '.join(missing)}")
@@ -1171,8 +1424,8 @@ def run_fps(pipe) -> float:
 
 def main_paths(tmp):
     """Chains (a)-(h''): [(label, description, {appsrc: frames}, kernels
-    the chain must launch ("!K6": must not), opaque output, *({appsrc:
-    [tff]},))]."""
+    the chain must launch ("!K6": must not; "K6=8": exactly 8 times), opaque
+    output, *({appsrc: [tff]},))]."""
     lut33 = write_cube(Path(tmp) / "grade33.cube", grade_cube(33, seed=3))
     lut17 = write_cube(Path(tmp) / "grade17.cube", grade_cube(17, seed=17))
     red = red_png(Path(tmp) / "config5-red.png")
@@ -1214,7 +1467,7 @@ def main_paths(tmp):
          ("K1", "K1b", "K2", "K4", "!K6"), False),
         ("(e') config 5 -> NV12 4K, then the overlay (not folded: K6)",
          CONFIG5.format(png=red, fmt="NV12"), config5,
-         ("K1", "K1b", "K2", "K4", "K6"), False),
+         ("K1", "K1b", "K2", "K4", f"K6={FRAMES}"), False),
         ("(f) checker composite -> NV12 1080p: NV12 1080p scaled to 1280x720 "
          "at xpos -100 + BGRA 720p keep-aspect", CHAIN_F,
          {"s0": nv12_frames(FRAMES, 1920, 1080, seed=60),
@@ -1223,13 +1476,14 @@ def main_paths(tmp):
         ("(g) config 4: I420 1920x1080 interlaced, greedy-H threshold 0.3, "
          "a moving block -> I420", CONFIG4,
          {"appsrc0": i420_moving_block(FRAMES, 1920, 1080, seed=4)},
-         ("K1", "K1b", "K2", "K5"), False),
+         (f"K5={FRAMES}", "!K1", "!K1b", "!K2"), False),
         ("(g') BGRA 1920x1080 weave, field-layout=auto, pushed tff "
          "alternating -> BGRA",
          "appsrc format=BGRA width=1920 height=1080 ! vfmetaldeinterlace "
          "method=weave field-layout=auto ! appsink",
-         {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=41)}, ("K5",),
-         False, {"appsrc0": [i % 2 == 0 for i in range(FRAMES)]}),
+         {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=41)},
+         (f"K5={FRAMES}", "!K1", "!K1b", "!K2"), False,
+         {"appsrc0": [i % 2 == 0 for i in range(FRAMES)]}),
         ("(h) config 2: BGRA 640x480 clockwise, crop-left 32, crop-top 16",
          "appsrc format=BGRA width=640 height=480 ! vfmetaltransform "
          "method=clockwise crop-left=32 crop-top=16 ! appsink",
@@ -1249,12 +1503,19 @@ def main_paths(tmp):
 
 
 def phase_chains(tmp):
-    """Chains (a)-(h''); -> {kernel: launches summed over the chains}."""
-    total = {}
+    """Chains (a)-(h''); -> {kernel: launches summed over the chains}.
+    (e') is (e) to NV12: its overlay stage must add its one K6 a frame and
+    no sampler or emit launch of its own to (e)'s."""
+    total, by_chain = {}, {}
     for label, desc, frames, expect, opaque, *tffs in main_paths(tmp):
-        for k, v in phase_chain(label, desc, frames, expect, opaque,
-                                *tffs).items():
+        by_chain[label[:4]] = phase_chain(label, desc, frames, expect,
+                                          opaque, *tffs)
+        for k, v in by_chain[label[:4]].items():
             total[k] = total.get(k, 0) + v
+    e, e2 = by_chain["(e) "], by_chain["(e')"]
+    if any(e[k] != e2[k] for k in ("K1", "K1b", "K2")):
+        fail(f"(e'): the overlay stage launched samplers or emits of its "
+             f"own ((e) {e}, (e') {e2})")
     return total
 
 
@@ -1453,18 +1714,18 @@ KERNELS = (
      "scripts/bench_gather.py:111"),
     ("K4", "composite_fold (K4)", "tpuvf_torch/csrc/composite.cu",
      "scripts/bench_comp_pallas.py:163"),
-    ("K5", "deinterlace_u8 (K5)", "tpuvf_torch/csrc/deinterlace.cu",
-     "tpuvf/kernels/deinterlace.py:135"),
-    ("K6", "overlay_blend_u8 (K6)", "tpuvf_torch/csrc/overlay.cu",
-     "tpuvf/elements/overlay.py:595"),
+    ("K5", "deinterlace_yuv420_u8/deinterlace_u8 (K5)",
+     "tpuvf_torch/csrc/deinterlace.cu", "tpuvf/kernels/deinterlace.py:135"),
+    ("K6", "overlay_yuv420_u8/overlay_blend_u8 (K6)",
+     "tpuvf_torch/csrc/overlay.cu", "tpuvf/elements/overlay.py:595"),
 )
 # Device time (us, torch.profiler self time) of each kernel at its JSON
 # shape, and of K2 at chain (b)'s RGBA shape, before the redesigns of K3 and
 # K4, and where it was measured: this script's phase 3 on the kernels of
-# commit d03551a (PERF.md section 6).
+# commit d03551a (PERF.md section 6).  K5 and K6 are held instead to the
+# launches their fused routes replace, timed in this run (phase 3).
 BEFORE_CALL = "kernels of d03551a, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_US = {"K1": 20.1, "K1b": 37.3, "K2": 39.8, "K3": 62.6, "K4": 88.3,
-             "K5": 14.0, "K6": 42.1,
              "K2 4K RGBA u8, b/c/s (chain (b)'s vfvideofilter)": 31.4}
 
 
@@ -1558,6 +1819,9 @@ def main(argv) -> int:
         was = (f"before {before:.1f} us ({BEFORE_CALL}), "
                f"{s['bound_us'] / before:.0%} of the bound -> "
                if before else "")
+        if "replaced_us" in s:
+            was = (f"replaces launches of {s['replaced_us']:.1f} us device "
+                   f"(the parent's route, this run) -> ")
         lib = s.get("library_device_us")
         print(f"[roofline] {label} {name}: {was}device {s['device_us']:.1f} "
               f"us, bound {s['bound_us']:.1f} us ({s['moved_mb']:.1f} MB "

@@ -194,7 +194,10 @@ def test_emit_rejects_what_the_kernel_does_not_take():
 
 # -- the CUDA sources ---------------------------------------------------------
 
-EMIT_CU = (_build.SOURCE_DIR / "emit.cu").read_text()
+# emit.cu with the shared device header it includes, where the colour
+# constants live
+EMIT_CU = "\n".join((_build.SOURCE_DIR / name).read_text()
+                    for name in ("yuv420.cuh", "emit.cu"))
 
 
 def _constant(name):

@@ -166,7 +166,7 @@ def test_pipeline_plans_the_fold_as_tpuvf(case, tmp_path, monkeypatch):
     desc = COMP.format(fmt="BGRA") + tail.format(a=a, b=b) + " " + PADS
     feeds = _feeds(3)
     if not k6:  # a folded overlay's own stage never runs K6
-        monkeypatch.setattr(eov, "overlay_blend", _no_k6)
+        monkeypatch.setattr(eov, "overlay_frame", _no_k6)
     port = _run(port_parse, desc, feeds, device="cpu")
     want_folds = {"c": folded} if folded else {}
     assert _port_folds(port) == want_folds

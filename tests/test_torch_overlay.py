@@ -173,10 +173,17 @@ def test_empty_rect_only_quantizes():
     rect, planes = kov.overlay_rect(np.full((4, 4, 4), 255, np.uint8), 8, 6,
                                     20.0, 1.0, 4.0, 4.0)
     assert rect[0] == rect[1] and planes.shape[2] == 0
-    out = kov.overlay_blend(src, rect, torch.from_numpy(planes), alpha)
+    ov = torch.from_numpy(planes)
+    out = kov.overlay_blend_plain(src, rect, ov, alpha)
     assert torch.equal(out, torch.round(src * 255.0).to(torch.uint8))
+    # the RGB route of the wrapper: an empty rect returns the planes as
+    # they are (quant(dequant(v)) == v)
+    rgba = out.clone()
+    got = kov.overlay_frame({"rgba": rgba}, None, rect, ov, alpha, 0, 0)
+    assert torch.equal(got["rgba"], rgba)
     with pytest.raises(ValueError, match="rect"):
-        kov.overlay_blend(src, (0, 9, 0, 2), torch.zeros((4, 2, 9)), alpha)
+        kov.overlay_frame({"rgba": rgba}, None, (0, 9, 0, 2),
+                          torch.zeros((4, 2, 9)), alpha, 0, 0)
 
 
 # -- BASELINE config 5 at a small size --------------------------------------

@@ -59,10 +59,7 @@
 //   - a chain of launches is exact: the fold is sequential per pixel and the
 //     canvas holds exactly the quantized value the next draw dequantizes.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "yuv420.cuh"
 
 namespace {
 
@@ -102,30 +99,6 @@ struct FoldParams {
 
 // kernels/composite.py OP_SOURCE, OP_OVER, OP_ADD
 enum Op : int { kOpSource, kOpOver, kOpAdd };
-
-constexpr float kInv255 = static_cast<float>(1.0 / 255.0);
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-// torch.clamp: NaN passes through (max.NaN and min.NaN return NaN when an
-// operand is NaN; otherwise they are max and min).
-__device__ __forceinline__ float clamp01(float x) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(0.0f));
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(1.0f));
-  return r;
-}
-
-// rounding half to even, as torch.round: one cvt.rni of the clamped value
-__device__ __forceinline__ uint8_t quant(float x) {
-  return static_cast<uint8_t>(__float2uint_rn(mul(clamp01(x), 255.0f)));
-}
-
-__device__ __forceinline__ float dequant(uint8_t v) {
-  return mul(static_cast<float>(v), kInv255);
-}
 
 // The source quad of draw d at canvas (x .. x + 3, y), s[c][lane], as the
 // plain version reads it: dequantized u8, or f32 as is.  Lanes outside the

@@ -75,10 +75,7 @@
 //     plain version;
 //   - clamps propagate NaN like torch.clamp.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "yuv420.cuh"
 
 namespace {
 
@@ -98,23 +95,11 @@ enum Gate : int {
   kGateChromaKey = 16, kGateVignette = 32, kGateNoise = 64,
 };
 
-__constant__ float kYuvOffset[3] = {16.0 / 255.0, 128.0 / 255.0,
-                                    128.0 / 255.0};
-// color.YUV_TO_RGB: [matrix][row r/g/b][column y/u/v]
-__constant__ float kYuvToRgb[2][3][3] = {
-    {{1.164383, 0.0, 1.596027},
-     {1.164383, -0.391762, -0.812968},
-     {1.164383, 2.017232, 0.0}},
-    {{1.164383, 0.0, 1.792741},
-     {1.164383, -0.213249, -0.532909},
-     {1.164383, 2.112402, 0.0}},
-};
 __constant__ float kLuma[3] = {0.2126, 0.7152, 0.0722};
 __constant__ float kSepiaM[3][3] = {{0.393, 0.769, 0.189},
                                     {0.349, 0.686, 0.168},
                                     {0.272, 0.534, 0.131}};
 
-constexpr float kInv255 = static_cast<float>(1.0 / 255.0);
 constexpr float kUniformEps = static_cast<float>(0.001);
 constexpr float kGammaFloor = static_cast<float>(0.0001);
 constexpr float kHsvEps = static_cast<float>(1.0e-10);
@@ -125,20 +110,6 @@ constexpr float kFrameScale = static_cast<float>(0.00137);
 constexpr float kHashScale = static_cast<float>(0.1031);
 constexpr float kHashK = static_cast<float>(33.33);
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-// torch.clamp: NaN passes through (max.NaN and min.NaN return NaN when an
-// operand is NaN; otherwise they are max and min).
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(lo));
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(hi));
-  return r;
-}
-__device__ __forceinline__ float clamp01(float x) { return clampf(x, 0.0f, 1.0f); }
-
 __device__ __forceinline__ float fract(float x) { return sub(x, floorf(x)); }
 
 // t*t*(3 - 2t) of an already clamped t (filter._smoothstep's tail).
@@ -146,36 +117,11 @@ __device__ __forceinline__ float smooth_tail(float t) {
   return mul(mul(t, t), sub(3.0f, mul(2.0f, t)));
 }
 
-// rounding half to even, as torch.round: one cvt.rni of the clamped value
-__device__ __forceinline__ uint8_t quant(float x) {
-  return static_cast<uint8_t>(__float2uint_rn(mul(clamp01(x), 255.0f)));
-}
-
-__device__ __forceinline__ float dequant(uint8_t v) {
-  return mul(static_cast<float>(v), kInv255);
-}
 __device__ __forceinline__ float load(const uint8_t* p, size_t i) {
   return dequant(__ldg(p + i));
 }
 __device__ __forceinline__ float load(const float* p, size_t i) {
   return __ldg(p + i);
-}
-
-// color.yuv_to_rgb: (m0*yo + m1*uo) + m2*vo per row, clamped.
-__device__ __forceinline__ void yuv_to_rgb(float y, float u, float v, int mi,
-                                           float& r, float& g, float& b) {
-  const float yo = sub(y, kYuvOffset[0]);
-  const float uo = sub(u, kYuvOffset[1]);
-  const float vo = sub(v, kYuvOffset[2]);
-  float out[3];
-#pragma unroll
-  for (int row = 0; row < 3; ++row) {
-    const float* m = kYuvToRgb[mi][row];
-    out[row] = clamp01(add(add(mul(m[0], yo), mul(m[1], uo)), mul(m[2], vo)));
-  }
-  r = out[0];
-  g = out[1];
-  b = out[2];
 }
 
 // filter.rgb_to_hsv, branch for branch.

@@ -46,19 +46,13 @@
 // exactly what the plain PyTorch version (separate mul and add ops) gives.
 
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
 
-#include <cstddef>
-#include <cstdint>
+#include "yuv420.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
-
-__device__ __forceinline__ float tap2(float wa, float a, float wb, float b) {
-  return __fadd_rn(__fmul_rn(wa, a), __fmul_rn(wb, b));
-}
 
 // in (planes, in_h, width) -> out (planes, out_h, width); `rows` is
 // planes * out_h.  kVec4: x counts float4 groups (width % 4 == 0, aligned).

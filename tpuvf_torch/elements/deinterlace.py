@@ -8,11 +8,12 @@
 - field order: explicit, or with `auto` each buffer's TFF flag
   (m:169-185), which the runtime hands over as ``params["__meta__"]``;
   the stream's `FrameSpec.tff` when a buffer carries none
-- the input is converted to an RGBA8 texture first (nearest chroma
-  upsample, metaldeinterlacerenderer.m:204-293): the K1/K1b sampler and the
-  emit K2 for YUV inputs, the planes themselves for RGB inputs (exact:
-  ``quant(dequant(v)) == v``); the field kernel K5 runs on that texture,
-  and the *input* texture becomes the previous frame (m:394-405)
+- one K5 launch a frame (``deinterlace.deinterlace_frame``) runs the whole
+  body: the input's RGBA8 texture (nearest chroma upsample,
+  metaldeinterlacerenderer.m:204-293: computed in registers for YUV inputs;
+  the planes themselves for RGB inputs, exact as ``quant(dequant(v)) ==
+  v``), the field logic and the output pack; the *input* texture becomes
+  the previous frame (m:394-405), written out by the kernel for YUV inputs
 - weave/greedy-H fall back to bob on the first frame (m:326-338);
   ``has_prev`` is a host bool, so the choice costs no device read
 - no passthrough mode
@@ -35,9 +36,8 @@ from tpuvf_torch.kernels import convert
 from tpuvf_torch.kernels.deinterlace import (
     METHOD_BOB,
     METHOD_LINEAR,
-    deinterlace,
+    deinterlace_frame,
 )
-from tpuvf_torch.kernels.emit import emit
 from tpuvf_torch.kernels.sample import NEAREST
 
 FIELD_AUTO, FIELD_TFF, FIELD_BFF = 0, 1, 2
@@ -87,9 +87,8 @@ class Deinterlace(Element):
         stateless = method in (METHOD_BOB, METHOD_LINEAR)
         static_tff = (bool(in_spec.tff) if layout == FIELD_AUTO
                       else layout == FIELD_TFF)
-        rgb_in = in_spec.format in RGB_FORMATS
-        sampler = None if rgb_in else convert.plan_rgba_sampler(
-            in_spec, in_spec.width, in_spec.height, device, filter=NEAREST)
+        taps = (None if in_spec.format in RGB_FORMATS
+                else convert.plan_chroma_taps(in_spec, device, NEAREST))
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def resolve_tff(params) -> bool:
@@ -99,20 +98,17 @@ class Deinterlace(Element):
             return static_tff if flag is None else flag != 0
 
         def process(planes, state, params):
-            tff = resolve_tff(params)
-            # the input's RGBA8 texture (m:204-293)
-            cur_q = (planes["rgba"] if rgb_in
-                     else emit(sampler(planes), matrix_in))
             if stateless:
                 prev, has_prev = None, False
             else:
                 prev, has_prev = state["prev"], state["has_prev"]
-            out = deinterlace(cur_q, prev, method, tff, has_prev,
-                              params["motion-threshold"])
-            out = convert.pack_rgba(out, out_spec.format, matrix_out)
+            out, tex = deinterlace_frame(
+                planes, prev, method, resolve_tff(params), has_prev,
+                params["motion-threshold"], taps, matrix_in, out_spec.format,
+                matrix_out)
             if stateless:
                 return out, state
             # blit input -> prevFrame (m:394-405)
-            return out, {"prev": cur_q, "has_prev": True}
+            return out, {"prev": tex, "has_prev": True}
 
         return process

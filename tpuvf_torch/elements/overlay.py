@@ -14,11 +14,13 @@ canonical path).
   premultiplied image, resampled LINEAR when stretched
 
 At build time the image is resampled to its rect on the host
-(``overlay.overlay_rect``) and moved to the device once.  Per frame: the
-frame's float32 RGBA (the uint8 planes for RGB inputs, which the kernel
-dequantizes; the emit K2 to float32 for YUV inputs, as tpuvf blends the
-unquantized ``yuv_to_rgb``), the rect blend and quantize K6, the output
-pack.  After a vfcompositor with an RGB output the pipeline folds the
+(``overlay.overlay_rect``) and moved to the device once, with a 4:2:0
+input's chroma taps (``convert.plan_chroma_taps``).  Per frame, one K6
+launch (``overlay.overlay_frame``) runs the whole body: the frame's float32
+RGB (the dequantized uint8 planes of an RGB input; for a 4:2:0 input the
+unquantized ``yuv_to_rgb`` of its LINEAR-sampled chroma, as tpuvf blends
+it), the rect blend, the RGBA8 quantization and the output pack.  After a
+vfcompositor with an RGB output the pipeline folds the
 overlay into the compositor's K4 launch as a final mix draw
 (`fold_into_aggregate_ok`, `fold_rect`; ``tpuvf/runtime/pipeline.py:
 541-606``) and this stage is a passthrough; after a YUV output it runs
@@ -40,8 +42,7 @@ from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.io import png
 from tpuvf_torch.kernels import convert
-from tpuvf_torch.kernels.emit import emit
-from tpuvf_torch.kernels.overlay import overlay_blend, overlay_rect
+from tpuvf_torch.kernels.overlay import overlay_frame, overlay_rect
 
 _log = logging.getLogger("tpuvf_torch.overlay")
 
@@ -162,19 +163,13 @@ class Overlay(Element):
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
                      device):
         rect, planes_np = self.fold_rect(in_spec)
-        w, h = in_spec.width, in_spec.height
         ov = torch.from_numpy(planes_np).to(device)
-        rgb_in = in_spec.format in RGB_FORMATS
-        sampler = None if rgb_in else convert.plan_rgba_sampler(
-            in_spec, w, h, device)
+        taps = (None if in_spec.format in RGB_FORMATS
+                else convert.plan_chroma_taps(in_spec, device))
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):
-            # RGB: the uint8 planes (the kernel dequantizes them); YUV: the
-            # unquantized yuv_to_rgb, as tpuvf blends it
-            src = (planes["rgba"] if rgb_in
-                   else emit(sampler(planes), matrix_in, out_float=True))
-            out = overlay_blend(src, rect, ov, params["alpha"])
-            return convert.pack_rgba(out, out_spec.format, matrix_out), state
+            return overlay_frame(planes, taps, rect, ov, params["alpha"],
+                                 matrix_in, matrix_out), state
 
         return process

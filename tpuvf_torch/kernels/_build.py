@@ -4,9 +4,10 @@ Every ``csrc/*.cu`` source has a plain C interface.  `build` compiles each
 source to an object with its own ``nvcc -c`` (all started together, so the
 build takes as long as the slowest source), then links the objects with one
 ``nvcc -shared`` into a single library under ``tpuvf_torch/_build/``
-(git-ignored), which `load` opens with ctypes.  The library is rebuilt when
-it is missing or older than any source.  A failed build raises; nothing
-falls back to another path.
+(git-ignored), which `load` opens with ctypes.  The sources include the
+shared device header ``csrc/yuv420.cuh`` (found beside them, no ``-I``
+needed).  The library is rebuilt when it is missing or older than any source
+or header.  A failed build raises; nothing falls back to another path.
 
 The kernels in the library, each with its wrapper:
 
@@ -18,10 +19,13 @@ The kernels in the library, each with its wrapper:
   trilinear 3D-LUT lookup with its quantizing epilogue;
 - K4 ``composite_fold`` (``composite.cu``, ``kernels/composite.py``):
   vfcompositor's per-pixel blend fold of the pad draws over the background;
-- K5 ``deinterlace_u8`` (``deinterlace.cu``, ``kernels/deinterlace.py``):
-  vfdeinterlace's bob / weave / greedy-H field kernel on RGBA8 textures;
-- K6 ``overlay_blend_u8`` (``overlay.cu``, ``kernels/overlay.py``):
-  vfoverlay's rect blend of the premultiplied image, quantizing.
+- K5 ``deinterlace_u8`` (RGB in) and ``deinterlace_yuv420_u8`` (4:2:0 in)
+  (``deinterlace.cu``, ``kernels/deinterlace.py``): vfdeinterlace's whole
+  body, texture -> bob / weave / greedy-H -> RGBA8 or 4:2:0 out;
+- K6 ``overlay_blend_u8`` (RGB) and ``overlay_yuv420_u8`` (4:2:0)
+  (``overlay.cu``, ``kernels/overlay.py``): vfoverlay's whole body, the
+  input's RGB -> the rect blend of the premultiplied image -> RGBA8 or
+  4:2:0 out.
 
 `SIGNATURES` gives each exported function's ctypes argument types; a source
 that exports a function must list it there.
@@ -72,10 +76,18 @@ SIGNATURES = {
     "composite_fold": [_P, _P, _P],
     # src, src_f32, width, x
     "composite_draw_vector_path": [_P, _I, _I, _I],
-    # cur, prev, out, threshold, height, width, method, tff, stream
-    "deinterlace_u8": [_P] * 4 + [_I] * 4 + [_P],
-    # src, src_f32, out, height, width, ov, x0, x1, y0, y1, alpha, stream
-    "overlay_blend_u8": [_P, _I, _P, _I, _I, _P] + [_I] * 4 + [_P, _P],
+    # cur, prev, out, out_u, out_v, threshold, height, width, method, tff,
+    # matrix_out, stream
+    "deinterlace_u8": [_P] * 6 + [_I] * 5 + [_P],
+    # y, u, v, 8 chroma taps, prev, out, out_u, out_v, tex, threshold,
+    # height, width, method, tff, matrix_in, matrix_out, stream
+    "deinterlace_yuv420_u8": [_P] * 17 + [_I] * 6 + [_P],
+    # src, out, height, width, ov, x0, x1, y0, y1, alpha, stream
+    "overlay_blend_u8": [_P, _P, _I, _I, _P] + [_I] * 4 + [_P, _P],
+    # y, u, v, 8 chroma taps, out_y, out_u, out_v, height, width, ov, x0, x1,
+    # y0, y1, alpha, matrix_in, matrix_out, stream
+    "overlay_yuv420_u8": [_P] * 14 + [_I, _I, _P] + [_I] * 4 + [_P, _I, _I,
+                                                                _P],
 }
 
 _lib = None
@@ -85,6 +97,11 @@ build_seconds = None  # wall time of the last build in this process, if any
 def sources() -> list:
     """Every CUDA source of the package, sorted by name."""
     return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def headers() -> list:
+    """Every device header the sources include, sorted by name."""
+    return sorted(SOURCE_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -139,7 +156,8 @@ def _stale() -> bool:
     if not LIBRARY.exists():
         return True
     built = LIBRARY.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return any(src.stat().st_mtime > built
+               for src in sources() + headers())
 
 
 def load() -> ctypes.CDLL:

@@ -41,7 +41,9 @@ from tpuvf_torch.kernels.resample import (
     make_col_taps,
     make_taps,
     resample_cols,
+    resample_cols_plain,
     resample_rows,
+    resample_rows_plain,
 )
 from tpuvf_torch.kernels.sample import LINEAR, NEAREST
 
@@ -145,6 +147,61 @@ def plan_rgba_sampler(
                 "v": uv[..., 1, :, :]}
 
     return run
+
+
+def plan_chroma_taps(in_spec: FrameSpec, device, filter: str = LINEAR):
+    """-> (rows, cols): the 2-tap tables that bring a 4:2:0 input's chroma
+    planes to its own luma grid at scale 1, None for an identity axis: the
+    tables `plan_rgba_sampler`'s K1 and K1b launches read (without K1b's band
+    plan).  The fused routes of K5 and K6 sample each pixel's chroma through
+    them, rows first, then columns."""
+    if in_spec.format not in PLANAR_YUV_FORMATS:
+        raise ValueError(f"plan_chroma_taps: {in_spec.format} is not 4:2:0")
+    cw, ch = chroma_dims_420(in_spec.width, in_spec.height)
+    return (plan_axis_taps(ch, in_spec.height, filter, 1.0, device),
+            plan_axis_taps(cw, in_spec.width, filter, 1.0, device))
+
+
+def check_chroma_taps(taps, chroma, luma, device, name: str) -> None:
+    """`taps` (rows, cols), as `plan_chroma_taps` makes them, must bring the
+    (ch, cw) chroma planes to the (H, W) luma grid on `device`, with None
+    only for an identity axis; a fused route's wrapper checks them before its
+    kernel reads them."""
+    if len(taps) != 2:
+        raise ValueError(f"{name}: taps must be (rows, cols)")
+    for t, n_in, n_out in zip(taps, chroma, luma):
+        if t is None:
+            if n_in != n_out:
+                raise ValueError(f"{name}: an identity axis needs equal "
+                                 f"sizes, got {n_in} -> {n_out}")
+            continue
+        if t.in_size != n_in or t.out_size != n_out:
+            raise ValueError(f"{name}: taps map {t.in_size} -> "
+                             f"{t.out_size}, the planes {n_in} -> {n_out}")
+        if any(x.device != device or not x.is_contiguous() for x in t[:4]):
+            raise ValueError(f"{name}: taps must be contiguous on {device}")
+
+
+def chroma_taps_ptrs(taps) -> list:
+    """The 8 chroma tap pointers a fused route's kernel takes: the rows' i0,
+    i1, w0, w1, then the columns'; None (null) for an identity axis."""
+    ptrs = []
+    for t in taps:
+        ptrs += [None] * 4 if t is None else [x.data_ptr() for x in t[:4]]
+    return ptrs
+
+
+def sample_yuv420_plain(planes: dict, taps) -> dict:
+    """4:2:0 uint8 planes -> the emit's source at the luma grid, {"y" uint8,
+    "u", "v" float32}, with the plain resamplers and `plan_chroma_taps`'
+    tables: what `plan_rgba_sampler` computes at scale 1, in plain parts."""
+    rows, cols = taps
+    uv = dequant(torch.stack((planes["u"], planes["v"]), -3))
+    if rows is not None:
+        uv = resample_rows_plain(uv, rows)
+    if cols is not None:
+        uv = resample_cols_plain(uv, cols)
+    return {"y": planes["y"], "u": uv[..., 0, :, :], "v": uv[..., 1, :, :]}
 
 
 def plan_border(out_w: int, out_h: int, scale_x: float, scale_y: float,
