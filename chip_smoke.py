@@ -96,7 +96,23 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    Frame 0 must be within 1 LSB of the same pipeline on the CPU;
    device-resident us/frame of the built step (CUDA events and the host
    clock), its device-busy us (torch.profiler) and idle share, and wall fps
-   of Pipeline.run (upload and readback included) are printed;
+   of Pipeline.run (upload and readback included) are printed.  Then the
+   multi-sink and file chains, 8 frames each: (i) appsrc NV12 3840x2160 ->
+   vfmetalconvertscale -> BGRA -> tee -> vfmetalvideosink 1920x1200 and
+   appsink, the window a 1920x1080 rect between 60-row bars (exact), its
+   windows and the appsink's frames within 1 LSB of the CPU run, K1, K1b
+   and K2 launched; (j) a seeded 1920x1080 It I420 .y4m (written here) ->
+   y4msrc -> greedy-H -> tee -> y4menc ! filesink, and vfmetalconvertscale
+   -> BGRA 1280x720 -> jpegenc ! multifilesink, the .y4m byte-equal to the
+   CPU run's (or within 1 LSB per sample once parsed; the line says which),
+   each JPEG decoded within 1 LSB of the CPU run's, one K5 a frame and K1,
+   K1b, K2; (k) 8 seeded 3840x2160 UYVY frames in a raw file ->
+   rawvideosrc -> vfmetalconvertscale -> BGRA 4K, and -> YUY2 1920x1080,
+   each output file within 1 LSB of the CPU run's.  For every chain an
+   [4 edge] line splits Pipeline.run's host time a frame: upload, step
+   enqueue, the readback's enqueue, the wait on the previous frame's
+   event, and delivery (the copy for a sink that keeps its frames, codecs
+   and sinks);
 5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
    b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
@@ -114,8 +130,9 @@ function) and the main paths' launches; the last line is {"ok": true,
 full float32), though the port runs no matmul.
 
 With --host-steps it runs only the card and build phases and the host side
-of the main paths (`host_steps`), and prints no result line: to compare two
-checkouts, run it from the root of each in turns within one call.
+of chains (a)-(h'') (`host_steps`: the step, Pipeline.run's fps and its
+host edge), and prints no result line: to compare two checkouts, run it
+from the root of each in turns within one call.
 """
 
 from __future__ import annotations
@@ -1338,23 +1355,21 @@ def _planes(frame):
     return frame if isinstance(frame, dict) else {"frame": frame}
 
 
-def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
-    """Drive one main path on the card, fed {appsrc name: frames}; every
-    kernel of `expect` must launch, none of it written "!K6" may, and one
-    written "K6=8" must launch exactly that often; -> {kernel: launches}."""
-    import numpy as np
+def counted_run(label, pipe, frames, expect):
+    """Pipeline.run with every launch counter set to 0 just before it and
+    read just after: every kernel of `expect` must launch, none of it
+    written "!K6" may, and one written "K6=8" must launch exactly that
+    often; -> {kernel: launches}."""
     import torch
 
-    frames = max(feeds.values(), key=len)
     wrappers = counters()
-    pipe = fed_pipeline(desc, feeds, "cuda", tffs)
     for w in wrappers.values():
         w.launches = 0
     n = pipe.run()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    if n != len(frames):
-        fail(f"{label}: ran {n} of {len(frames)} frames")
+    if n != frames:
+        fail(f"{label}: ran {n} of {frames} frames")
     exact = dict(k.split("=") for k in expect if "=" in k)
     wrong = {k: launches[k] for k, n in exact.items() if launches[k] != int(n)}
     if wrong:
@@ -1369,6 +1384,17 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     if barred:
         fail(f"{label}: launch counters {launches}; the path must not reach "
              f"{', '.join(barred)}")
+    return launches
+
+
+def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
+    """Drive one main path on the card, fed {appsrc name: frames}, its
+    kernels held to `expect` (`counted_run`); -> {kernel: launches}."""
+    import numpy as np
+
+    frames = max(feeds.values(), key=len)
+    pipe = fed_pipeline(desc, feeds, "cuda", tffs)
+    launches = counted_run(label, pipe, len(frames), expect)
     outs = [_planes(f) for f in pipe["appsink0"].frames]
     for i, f in enumerate(outs):
         for k, v in f.items():
@@ -1402,24 +1428,36 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     step_us = host_us(step)
     busy_us, per = device_breakdown(step)
     top = ", ".join(f"{name[:40]} {us:.1f}" for name, us in per[:4])
+    n = len(frames)
     counts = ", ".join(f"{k} {v} ({v / n:g}/frame)"
                        for k, v in launches.items() if v)
+    fps, edge = run_fps(pipe)
     print(f"[4 main path] {label}: {n} frames on cuda | launches {counts} | "
           f"frame 0 vs CPU max {worst} LSB, {differ / total:.4%} differ | "
           f"device step {step_ms * 1e3:.1f} us/frame (events), "
           f"{step_us:.1f} us (host clock), busy {busy_us:.1f} us, idle "
           f"{max(0.0, 1.0 - busy_us / step_us):.3f} (largest, us: {top}) | "
-          f"Pipeline.run wall {run_fps(pipe):.2f} fps (upload + readback)",
+          f"Pipeline.run wall {fps:.2f} fps (upload + readback)",
           flush=True)
+    print(f"[4 edge] {label[:4].strip()}: {edge_text(edge)}", flush=True)
     return launches
 
 
-def run_fps(pipe) -> float:
+def run_fps(pipe):
     """Pipeline.run's frames per second, upload and readback included, on
-    a pipeline that has run once (planned and allocated)."""
+    a pipeline that has run once (planned and allocated), and its host
+    edge, ms a frame per part (`PipelineStats.edge_seconds`)."""
     pipe.frames, pipe.wall_seconds = 0, 0.0
+    edge = pipe.stats.edge_seconds
+    edge.update(dict.fromkeys(edge, 0.0))
     pipe.run()
-    return pipe.frames / pipe.wall_seconds
+    return (pipe.frames / pipe.wall_seconds,
+            {k: v / pipe.frames * 1e3 for k, v in edge.items()})
+
+
+def edge_text(edge) -> str:
+    return ("host edge ms/frame: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in edge.items()))
 
 
 def main_paths(tmp):
@@ -1516,6 +1554,205 @@ def phase_chains(tmp):
     if any(e[k] != e2[k] for k in ("K1", "K1b", "K2")):
         fail(f"(e'): the overlay stage launched samplers or emits of its "
              f"own ((e) {e}, (e') {e2})")
+    return total
+
+
+# Chain (i): a preview branch beside a capture branch, as in live production
+CHAIN_I = ("appsrc format=NV12 width=3840 height=2160 ! vfmetalconvertscale ! "
+           "video/x-raw,format=BGRA ! tee name=t t. ! queue ! "
+           "vfmetalvideosink window-width=1920 window-height=1200 t. ! queue "
+           "! appsink")
+# Chain (j): the file edge at 1080i, {src} a 1920x1080 It I420 .y4m
+CHAIN_J = ("y4msrc location={src} ! vfmetaldeinterlace method=greedyh "
+           "motion-threshold=0.3 ! tee name=t t. ! queue ! y4menc ! filesink "
+           "location={out}/out.y4m t. ! queue ! vfmetalconvertscale ! "
+           "video/x-raw,format=BGRA,width=1280,height=720 ! jpegenc "
+           "quality=85 ! multifilesink location={out}/f%05d.jpg")
+# Chain (k): packed 4:2:2 at 4K (config_convert422's shape), {src} raw UYVY
+CHAIN_K = ("rawvideosrc location={src} format=UYVY width=3840 height=2160 "
+           "num-buffers=8 ! vfmetalconvertscale ! video/x-raw,{caps} ! "
+           "filesink location={out}")
+
+
+def within(label, got, want, what) -> int:
+    """Max |got - want| over uint8 arrays of one shape; fails above 1."""
+    import numpy as np
+
+    if got.shape != want.shape:
+        fail(f"{label}: {what} {got.shape} vs the CPU run's {want.shape}")
+    worst = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    if worst > 1:
+        fail(f"{label}: {what} differs from the CPU run by {worst} LSB")
+    return worst
+
+
+def print_chain(label, pipe, launches, note):
+    pipe.negotiate()  # reopens the chain's files and restarts its encoders
+    fps, edge = run_fps(pipe)
+    n = pipe.frames
+    counts = ", ".join(f"{k} {v} ({v / n:g}/frame)"
+                       for k, v in launches.items() if v)
+    print(f"[4 main path] {label}: {n} frames on cuda | launches {counts} | "
+          f"{note} | Pipeline.run wall {fps:.2f} fps (upload + readback)",
+          flush=True)
+    print(f"[4 edge] {label[:4].strip()}: {edge_text(edge)}", flush=True)
+
+
+def collect_windows(pipe):
+    """The windows the pipeline's vfvideosink presents, in order."""
+    sink, shown = pipe["vfmetalvideosink0"], []
+    present = sink.present
+
+    def keep(window, index):
+        shown.append(window)
+        present(window, index)
+
+    sink.present = keep
+    return sink, shown
+
+
+def chain_i():
+    """(i): NV12 4K -> BGRA -> tee -> vfvideosink 1920x1200 + appsink.  The
+    window is a 1920x1080 rect between 60-row black bars; windows and
+    appsink frames within 1 LSB of the CPU run (on the first 2 frames and
+    the last 2, where a readback buffer reused too early would show), the
+    bars exact."""
+    import numpy as np
+
+    label = "(i) NV12 4K -> BGRA -> tee: vfvideosink 1920x1200 + appsink"
+    feeds = {"appsrc0": nv12_frames(FRAMES, 3840, 2160, seed=38)}
+    pipe = fed_pipeline(CHAIN_I, feeds, "cuda")
+    sink, shown = collect_windows(pipe)
+    launches = counted_run(label, pipe, FRAMES, ("K1", "K1b", "K2"))
+    if sink._display_rect != (0, 60, 1920, 1080):
+        fail(f"{label}: display rect {sink._display_rect}")
+    # the chain keeps no state: the CPU run of these frames alone gives
+    # their outputs
+    held = (0, 1, FRAMES - 2, FRAMES - 1)
+    cpu = fed_pipeline(CHAIN_I, {"appsrc0": [feeds["appsrc0"][k]
+                                             for k in held]}, "cpu")
+    _, cpu_shown = collect_windows(cpu)
+    cpu.run()
+    kept = pipe["appsink0"].frames
+    if len(shown) != FRAMES or len(kept) != FRAMES:
+        fail(f"{label}: {len(shown)} windows, {len(kept)} appsink frames")
+    bars = np.r_[0:60, 1140:1200]
+    worst = 0
+    for c, k in enumerate(held):
+        worst = max(worst,
+                    within(label, shown[k], cpu_shown[c], f"window {k}"),
+                    within(label, kept[k], cpu["appsink0"].frames[c],
+                           f"appsink frame {k}"))
+    for k, w in enumerate(shown):
+        if w.shape != (1200, 1920, 4) or not (w[bars] == (0, 0, 0, 255)).all():
+            fail(f"{label}: window {k} {w.shape}: the bars are not black")
+    if np.array_equal(shown[0], shown[1]):
+        fail(f"{label}: distinct frames gave equal windows")
+    print_chain(label, pipe, launches,
+                f"frames {held} vs CPU max {worst} LSB, bars exact")
+    return launches
+
+
+def write_y4m(path, frames, w, h):
+    from tpuvf_torch.io import y4m
+
+    with open(path, "wb") as fh:
+        fh.write(y4m.stream_header(w, h, fps=(25, 1), interlacing="t"))
+        for f in frames:
+            fh.write(y4m.encode_frame(f))
+
+
+def chain_j(tmp):
+    """(j): a seeded 1080i I420 .y4m -> greedy-H -> tee: y4menc ! filesink,
+    and BGRA 1280x720 -> jpegenc -> multifilesink.  The .y4m byte-equal to
+    the CPU run's (or every sample within 1 LSB once parsed); each JPEG,
+    decoded, within 1 LSB of the CPU run's."""
+    import numpy as np
+
+    from tpuvf_torch.io import y4m
+    from tpuvf_torch.native import jpeg
+
+    label = "(j) 1080i I420 .y4m -> greedy-H -> tee: y4menc + 720p jpegenc"
+    src = Path(tmp) / "in.y4m"
+    write_y4m(src, i420_moving_block(FRAMES, 1920, 1080, seed=44), 1920, 1080)
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        out = dirs[dev] = Path(tmp) / f"j-{dev}"
+        out.mkdir()
+        pipe = fed_pipeline(CHAIN_J.format(src=src, out=out), {}, dev)
+        if dev == "cuda":
+            launches = counted_run(label, pipe, FRAMES,
+                                   (f"K5={FRAMES}", "K1", "K1b", "K2"))
+            gpu = pipe
+        else:
+            pipe.run()
+    got, want = (dirs[d] / "out.y4m" for d in ("cuda", "cpu"))
+    if got.read_bytes() == want.read_bytes():
+        y4m_note = "out.y4m byte-equal"
+    else:
+        a, b = y4m.Reader(str(got)), y4m.Reader(str(want))
+        if a.header != b.header or a.num_frames() != b.num_frames():
+            fail(f"{label}: out.y4m headers or frame counts differ")
+        for k in range(b.num_frames()):
+            fa, fb = a.read_frame(k), b.read_frame(k)
+            for p in fb:
+                within(label, fa[p], fb[p], f"out.y4m frame {k} {p}")
+        y4m_note = "out.y4m within 1 LSB per sample once parsed"
+    names = sorted(p.name for p in dirs["cpu"].glob("f*.jpg"))
+    if names != sorted(p.name for p in dirs["cuda"].glob("f*.jpg")) or \
+            len(names) != FRAMES:
+        fail(f"{label}: JPEG files {names}")
+    same, worst = 0, 0
+    for name in names:
+        a, b = ((dirs[d] / name).read_bytes() for d in ("cuda", "cpu"))
+        same += a == b
+        worst = max(worst, within(label, jpeg.decode(a), jpeg.decode(b),
+                                  f"{name} decoded"))
+    first = jpeg.decode((dirs["cuda"] / names[0]).read_bytes())
+    if first.shape != (720, 1280, 4) or np.array_equal(
+            first, jpeg.decode((dirs["cuda"] / names[1]).read_bytes())):
+        fail(f"{label}: JPEG frames {first.shape} or equal")
+    print_chain(label, gpu, launches,
+                f"{y4m_note}; JPEGs decoded max {worst} LSB from the CPU "
+                f"run's, {same} of {len(names)} byte-equal")
+    return launches
+
+
+def chain_k(tmp):
+    """(k): 8 seeded 3840x2160 UYVY frames as raw bytes -> rawvideosrc ->
+    vfconvertscale -> BGRA 4K, and -> YUY2 1920x1080, each to a filesink;
+    each output file within 1 LSB of the CPU run's."""
+    import numpy as np
+
+    src = Path(tmp) / "in.uyvy"
+    np.random.default_rng(422).integers(
+        0, 256, (FRAMES, 2160, 7680), dtype=np.uint8).tofile(src)
+    total = {}
+    for caps, expect in (("format=BGRA", ("K1b", "K2")),
+                         ("format=YUY2,width=1920,height=1080",
+                          ("K1", "K1b", "K2"))):
+        label = f"(k) UYVY 3840x2160 raw file -> {caps.replace('format=', '')}"
+        outs = {d: Path(tmp) / f"k-{d}.raw" for d in ("cuda", "cpu")}
+        pipe = fed_pipeline(CHAIN_K.format(src=src, caps=caps,
+                                           out=outs["cuda"]), {}, "cuda")
+        launches = counted_run(label, pipe, FRAMES, expect)
+        fed_pipeline(CHAIN_K.format(src=src, caps=caps, out=outs["cpu"]), {},
+                     "cpu").run()
+        got, want = (np.fromfile(outs[d], np.uint8) for d in ("cuda", "cpu"))
+        worst = within(label, got, want, "the output file")
+        print_chain(label, pipe, launches,
+                    f"{got.size} bytes, max {worst} LSB from the CPU run's")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_file_chains(tmp):
+    """Chains (i)-(k); -> {kernel: launches summed over them}."""
+    total = {}
+    for launches in (chain_i(), chain_j(tmp), chain_k(tmp)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1754,9 +1991,10 @@ def host_steps() -> int:
             def step(pipe=pipe, inputs=inputs, state=state, params=params):
                 return pipe.step_sources(inputs, state, params)
 
+            fps, edge = run_fps(pipe)
             print(f"[host] {label}: step {host_us(step):.1f} us (host clock, "
-                  f"median of 5 x 20) | Pipeline.run {run_fps(pipe):.2f} fps",
-                  flush=True)
+                  f"median of 5 x 20) | Pipeline.run {fps:.2f} fps | "
+                  f"{edge_text(edge)}", flush=True)
             if label.startswith("(a)"):
                 first = step
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1804,6 +2042,8 @@ def main(argv) -> int:
         phase_composite(summary, tmp)
         phase_overlay(summary, tmp)
         launches = phase_chains(tmp)
+        for k, v in phase_file_chains(tmp).items():
+            launches[k] += v
         phase_oracle(tmp)
     kernels = []
     for label, name, source, replaces in KERNELS:

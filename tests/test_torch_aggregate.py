@@ -338,7 +338,12 @@ def test_graph_errors():
     with pytest.raises(ParseError, match="request pads"):
         parse_pipeline("videotestsrc ! vfmetalvideofilter sink_0::xpos=1 "
                        "! fakesink", device="cpu")
+    # two independent chains run now (multi-sink); a src pad linked twice
+    # without a tee is refused, as in tpuvf
     pipe = parse_pipeline("videotestsrc ! fakesink videotestsrc ! fakesink",
                           device="cpu")
-    with pytest.raises(ValueError, match="multi-sink"):
+    pipe.negotiate()
+    pipe = parse_pipeline("videotestsrc name=s ! fakesink s. ! fakesink",
+                          device="cpu")
+    with pytest.raises(ValueError, match="links once"):
         pipe.negotiate()

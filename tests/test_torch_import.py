@@ -26,6 +26,11 @@ MODULES = [
     "tpuvf_torch.elements.overlay", "tpuvf_torch.elements.transform",
     "tpuvf_torch.runtime.pipeline",
     "tpuvf_torch.runtime.params", "tpuvf_torch.cli.launch",
+    "tpuvf_torch.runtime.observability", "tpuvf_torch.elements.codecs",
+    "tpuvf_torch.elements.sinks", "tpuvf_torch.elements.sources",
+    "tpuvf_torch.elements.util_elements", "tpuvf_torch.elements.videosink",
+    "tpuvf_torch.io.png", "tpuvf_torch.io.y4m", "tpuvf_torch.native",
+    "tpuvf_torch.native.jpeg",
 ]
 
 

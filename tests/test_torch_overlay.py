@@ -140,12 +140,15 @@ def test_missing_file_stays_passthrough_with_a_warning(caplog):
 
 
 def test_jpeg_soft_fails_naming_the_decoder(tmp_path, caplog):
+    """A JPEG goes through the port's native decoder now; one it refuses
+    warns with the decoder's error and leaves the overlay passthrough."""
     path = tmp_path / "ov.jpg"
     path.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     el = POverlay()
     with caplog.at_level(logging.WARNING, logger="tpuvf_torch.overlay"):
         el.set_property("location", str(path))
-    assert "JPEG decoder" in caplog.text
+    assert str(path) in caplog.text
+    assert "truncated/invalid segment" in caplog.text  # the decoder's error
     spec = PSpec(PFormat.NV12, 32, 24)
     assert el.is_passthrough(spec, spec)
 

@@ -87,8 +87,9 @@ def test_passthrough_elements_are_elided():
 
 
 def test_unported_features_raise():
-    """Sharpness builds and runs now; the packed 4:2:2 host repack still
-    raises, naming its ROADMAP item, and tee is not registered."""
+    """Sharpness, the packed 4:2:2 host repack and tee run now; what is
+    still not ported (batched runs, the launcher's -b/--batch and --live)
+    is refused."""
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=BGRA,width=32,height=24"
         " ! vfmetalvideofilter sharpness=0.5 ! appsink", device="cpu")
@@ -97,13 +98,17 @@ def test_unported_features_raise():
     assert pipe["appsink0"].frames[0].shape == (24, 32, 4)
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=UYVY,width=32,height=24"
-        " ! vfmetalconvertscale ! video/x-raw,format=BGRA ! fakesink",
+        " ! vfmetalconvertscale ! video/x-raw,format=BGRA ! appsink",
         device="cpu")
     pipe.build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.run()
-    with pytest.raises(KeyError):
-        port_parse("videotestsrc ! tee ! fakesink", device="cpu")
+    assert pipe.run() == 1
+    assert pipe["appsink0"].frames[0].shape == (24, 32, 4)
+    pipe = port_parse("videotestsrc num-buffers=1 ! tee ! appsink",
+                      device="cpu")
+    assert pipe.run() == 1
+    assert not hasattr(pipe, "run_batched")
+    for flag in ("-b", "--live"):
+        assert port_main([flag, "videotestsrc ! fakesink"]) == 2
 
 
 def test_auto_field_order_per_buffer_flip():

@@ -12,7 +12,8 @@
 Grammar handled: `!` links, caps filter tokens (video/x-raw,...), element
 properties `key=value`, `name=` assignment, pad properties `pad::key=value`,
 named-pad references `name.pad` / `name.` both as link targets (sink pads)
-and chain heads (src pads), in either order in the string.
+and chain heads (src pads, such as a tee's branches `t. ! queue ! ...`), in
+either order in the string.
 """
 
 from __future__ import annotations
@@ -156,6 +157,8 @@ def launch(desc: str, device="cuda", num_frames: Optional[int] = None,
     if not quiet:
         print(f"tpuvf_torch-launch: processed {n} frames on {pipe.device}, "
               f"reached end of stream")
+        if verbose:
+            print(f"tpuvf_torch-launch: {pipe.stats.summary()}")
     return n
 
 

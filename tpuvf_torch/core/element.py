@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from tpuvf_torch.core.formats import VideoFormat
+from tpuvf_torch.core.frame import HostLayout, host_layout
 from tpuvf_torch.core.properties import PropertyBag, PropertyDescriptor
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
 
@@ -161,12 +162,31 @@ class SinkElement(Element):
     """Consumes frames host-side."""
 
     KLASS = "Sink/Video"
+    # whether `consume` may keep the host frame it is handed past the call
+    # (an appsink does): Pipeline.run then hands it arrays of its own, else
+    # views of a readback buffer that a frame two later reuses
+    KEEPS_PAYLOAD = True
+    # whether the payload is the spec's host byte layout, so that a host
+    # codec may encode it before the sink
+    HOST_PAYLOAD = True
 
     def accepts_format(self, fmt: VideoFormat) -> bool:
         return not self.IN_FORMATS or fmt in self.IN_FORMATS
 
     def prepare(self, in_spec: FrameSpec):
         """Called once at negotiation; may allocate files/windows."""
+
+    def device_payload(self, planes: Dict, spec: FrameSpec):
+        """What Pipeline.run reads back of one frame for this sink, enqueued
+        on the planes' device: -> (HostLayout, [device pieces]).  Default:
+        the spec's host byte layout."""
+        layout = HostLayout(spec)
+        return layout, host_layout(planes, spec)
+
+    def deliver(self, payload, spec: FrameSpec, frame_index: int) -> None:
+        """Hand over one frame's read-back payload (after its host codecs)
+        in Pipeline.run.  Default: `consume`."""
+        self.consume(payload, spec, frame_index)
 
     def consume(self, host_frame, spec: FrameSpec, frame_index: int) -> None:
         raise NotImplementedError

@@ -1,6 +1,7 @@
 """Element implementations (import side effect: registry population)."""
 
 from tpuvf_torch.elements import (  # noqa: F401
+    codecs,
     compositor,
     convertscale,
     deinterlace,
@@ -9,5 +10,7 @@ from tpuvf_torch.elements import (  # noqa: F401
     sources,
     testsrc,
     transform,
+    util_elements,
     videofilter,
+    videosink,
 )

@@ -1,14 +1,13 @@
-"""vfoverlay — PNG image overlay (port of ``tpuvf.elements.overlay``,
+"""vfoverlay — PNG/JPEG image overlay (port of ``tpuvf.elements.overlay``,
 canonical path).
 
 - formats BGRA, RGBA, NV12, I420
-- props: location (PNG; JPEG soft-fails, see below), x/y >= 0 px,
+- props: location (PNG, or JPEG through the port's native decoder), x/y >= 0 px,
   width/height (0 = native image size), alpha [0,1]=1 (a traced scalar),
   relative-x/-y in [-1,1] default -1 — relative >= 0 overrides absolute as
   rel*frameW / rel*frameH (gstvfmetaloverlay.m:189-200, 374-420)
 - passthrough iff no image is loaded; a missing or bad file warns and stays
-  passthrough (m:94-99, 114-127).  JPEG images need tpuvf's native decoder,
-  which the port does not have yet: they soft-fail with a warning naming it
+  passthrough (m:94-99, 114-127)
 - blending: video.rgb = mix(video.rgb, overlay.rgb, overlay.a * alpha)
   inside the overlay rect (metaloverlay_shaders.h:79-86) on the
   premultiplied image, resampled LINEAR when stretched
@@ -48,15 +47,16 @@ _log = logging.getLogger("tpuvf_torch.overlay")
 
 
 def load_overlay_image(path: str) -> np.ndarray:
-    """-> (H, W, 4) uint8 premultiplied RGBA from a PNG file."""
+    """-> (H, W, 4) uint8 premultiplied RGBA.  PNG via the built-in codec;
+    JPEG (opaque, so premultiplied as decoded) via the native decoder."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] == b"\x89PNG\r\n\x1a\n":
         return png.decode_premultiplied(data)
     if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(
-            "JPEG overlay images need the native JPEG decoder "
-            "(tpuvf/native/jpeg.py), which is not ported yet")
+        from tpuvf_torch.native import jpeg  # builds the library at first use
+
+        return jpeg.decode(data)
     raise ValueError(f"unsupported image format in {path}")
 
 
@@ -65,7 +65,7 @@ class Overlay(Element):
     ELEMENT_NAME = "vfoverlay"
     ALIASES = ("vfmetaloverlay", "overlay")
     KLASS = "Filter/Effect/Video"
-    DESCRIPTION = "Blends a PNG image over video"
+    DESCRIPTION = "Blends a PNG/JPEG image over video"
     IN_FORMATS = CORE_FORMATS
     OUT_FORMATS = CORE_FORMATS
     PROPERTIES = (

@@ -1,12 +1,11 @@
-"""PNG decoder (pure Python + zlib + numpy): the part of ``tpuvf.io.png``
-that `io.lut.load_png_lut` needs.
+"""PNG codec (pure Python + zlib + numpy), port of ``tpuvf.io.png``.
 
-8/16-bit, color types 0/2/3/4/6, filters 0-4, non-interlaced and
+Decoder: 8/16-bit, color types 0/2/3/4/6, filters 0-4, non-interlaced and
 Adam7-interlaced streams; decode output is always (H, W, 4) uint8 RGBA, and
 `decode_premultiplied` premultiplies RGB by alpha as the reference's
 CGBitmapContext decode does.  The per-row unfilter is tpuvf's numpy path
-(tpuvf also has a C++ one); LUT images are small.  The encoder is not
-ported yet.
+(tpuvf also has a C++ one).  Encoder: filter 0 rows in one IDAT at zlib
+level 9 (optionally Adam7), byte for byte tpuvf's.
 """
 
 from __future__ import annotations
@@ -204,3 +203,57 @@ def decode_premultiplied(data: bytes) -> np.ndarray:
     a = rgba[..., 3:4] / 255.0
     rgba[..., :3] = np.round(rgba[..., :3] * a)
     return rgba.astype(np.uint8)
+
+
+def encode(rgba: np.ndarray, color_type: int | None = None,
+           interlace: bool = False) -> bytes:
+    """(H, W, 3|4) or (H, W) uint8 -> PNG bytes (filter 0 rows, one IDAT;
+    optionally Adam7 interlaced)."""
+    arr = np.asarray(rgba, np.uint8)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, nch = arr.shape
+    if color_type is None:
+        color_type = {1: 0, 2: 4, 3: 2, 4: 6}[nch]
+    if interlace:
+        parts = []
+        for x0, y0, xs, ys in _ADAM7:
+            sub = arr[y0::ys, x0::xs]
+            if sub.shape[0] == 0 or sub.shape[1] == 0:
+                continue
+            ph, pw = sub.shape[:2]
+            rows = np.concatenate(
+                [np.zeros((ph, 1), np.uint8), sub.reshape(ph, pw * nch)],
+                axis=1)
+            parts.append(rows.tobytes())
+        compressed = zlib.compress(b"".join(parts), 9)
+    else:
+        rows = np.concatenate(
+            [np.zeros((h, 1), np.uint8), arr.reshape(h, w * nch)], axis=1
+        )
+        compressed = zlib.compress(rows.tobytes(), 9)
+
+    def chunk(ctype: bytes, payload: bytes) -> bytes:
+        body = ctype + payload
+        return struct.pack(">I", len(payload)) + body + struct.pack(
+            ">I", zlib.crc32(body) & 0xFFFFFFFF
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0,
+                       1 if interlace else 0)
+    return (
+        _SIGNATURE
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", compressed)
+        + chunk(b"IEND", b"")
+    )
+
+
+def read(path: str) -> np.ndarray:
+    with open(path, "rb") as fh:
+        return decode(fh.read())
+
+
+def write(path: str, rgba: np.ndarray) -> None:
+    with open(path, "wb") as fh:
+        fh.write(encode(rgba))

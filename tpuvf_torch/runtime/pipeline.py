@@ -17,12 +17,23 @@
   travels with the frame; a filter element gets it as
   ``params["__meta__"]`` (vfdeinterlace's per-buffer field order), an
   aggregator as ``params["__pad_meta__"][pad]``.
-- **Run**: an output clock at the tail's frame rate picks, for each output
-  frame, every source's latest buffer whose pts is due (repeating or
-  dropping as the rates differ; the GstVideoAggregator model).  Each picked
-  host frame is repacked to canonical planes and uploaded once, and reused
-  while it stays picked; the sink gets every output frame back in its host
-  byte layout.
+- **Run**: an output clock at the fastest branch tail's frame rate picks,
+  for each output frame, every source's latest buffer whose pts is due
+  (repeating or dropping as the rates differ; the GstVideoAggregator
+  model).  Each picked host frame is uploaded once (through a pinned host
+  buffer on a GPU) and split into canonical planes on the device, and reused
+  while it stays picked.  tpuvf's one-frame overlap: frame i's step, each
+  sink's ``device_payload`` (the host-layout permutation,
+  ``core.frame.host_layout``; a vfvideosink's render) and the non-blocking
+  copies into the sink's readback buffer (two a sink, pinned on a GPU,
+  taken in turns) are enqueued before the run waits on frame i-1's event
+  and hands frame i-1 to its sinks (a sink that keeps its frames,
+  ``KEEPS_PAYLOAD``, gets a copy), through each sink's host codec chain
+  (pngenc, jpegenc, y4menc, which run on the host between their branch's
+  tail and its sink).
+- **Tee**: a tee's branches read the same device planes; with more than one
+  sink the step returns ``{sink name: planes}`` and every sink gets its own
+  host payload.
 
 - **Overlay folds**: a vfoverlay that follows a vfcompositor with an RGB
   output (through passthrough elements) becomes a final mix draw of the
@@ -33,9 +44,10 @@
   rebuilds does not restart a grain counter or drop a previous frame.
 
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
-available; nothing falls back to the CPU.  One sink at most; tee and
-multi-sink, batched and live runs, controllers, navigation and tpuvf's
-split/quad/grid link layouts are not ported.
+available; nothing falls back to the CPU.  On the CPU the same loop runs
+with ordinary host buffers and no events.  Batched and live runs,
+controllers, navigation routing and tpuvf's split/quad/grid link layouts
+are not ported.
 """
 
 from __future__ import annotations
@@ -48,10 +60,17 @@ from typing import Dict, List, Optional
 import torch
 
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
-from tpuvf_torch.core.frame import host_to_planes, planes_to_host, to_device, to_host
+from tpuvf_torch.core.frame import HostLayout, from_host_layout
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
+from tpuvf_torch.runtime.observability import (  # noqa: F401 - re-exported
+    PipelineError,
+    PipelineStats,
+    get_logger,
+    trace,
+)
 
 META = "__meta__"
+_log = get_logger("pipeline")
 
 
 def resolve_device(device) -> torch.device:
@@ -65,16 +84,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     return dev
-
-
-class PipelineError(RuntimeError):
-    """A per-frame failure, tagged with the element that raised it."""
-
-    def __init__(self, element_name: str, frame_index: int, cause: Exception):
-        super().__init__(f"{element_name} (frame {frame_index}): {cause}")
-        self.element_name = element_name
-        self.frame_index = frame_index
-        self.cause = cause
 
 
 @dataclass
@@ -97,6 +106,14 @@ class Stage:
 
 def _strip_meta(planes: Dict) -> Dict:
     return {k: v for k, v in planes.items() if k != META}
+
+
+def _fans_out(element) -> bool:
+    return getattr(element, "FAN_OUT", False)
+
+
+def _is_codec(element) -> bool:
+    return getattr(element, "HOST_CODEC", False)
 
 
 def _is_aggregator(element) -> bool:
@@ -132,8 +149,26 @@ class Pipeline:
         self.state: Optional[Dict] = None
         self._negotiated = False
         self._built_signature = None
-        self.frames = 0
-        self.wall_seconds = 0.0
+        self._codec_chain: Dict[str, List[Element]] = {}
+        self._rings: Dict[str, List[torch.Tensor]] = {}
+        self.stats = PipelineStats()
+
+    # Pipeline.run's totals (tpuvf's stats), readable and resettable here
+    @property
+    def frames(self) -> int:
+        return self.stats.frames
+
+    @frames.setter
+    def frames(self, value: int) -> None:
+        self.stats.frames = value
+
+    @property
+    def wall_seconds(self) -> float:
+        return self.stats.wall_seconds
+
+    @wall_seconds.setter
+    def wall_seconds(self, value: float) -> None:
+        self.stats.wall_seconds = value
 
     # -- construction ------------------------------------------------------
 
@@ -193,11 +228,13 @@ class Pipeline:
     # -- negotiation -------------------------------------------------------
 
     def negotiate(self) -> None:
+        """Link rules, then FrameSpecs in topological order (tpuvf's
+        ``negotiate``, ``tpuvf/runtime/pipeline.py:162-240``): a source's
+        src pad links once, a tee takes one input and feeds at least one
+        branch, every branch of a tee carries its input spec (a branch caps
+        filter that rejects it is an error: tee never converts)."""
         if not self.sources:
             raise ValueError("pipeline has no source")
-        if len(self.sinks) > 1:
-            raise ValueError(f"{len(self.sinks)} sinks: multi-sink pipelines "
-                             f"(tee) are not ported")
         for e in self.elements:
             ins, outs = self._incoming(e), self._outgoing(e)
             if isinstance(e, SourceElement):
@@ -206,7 +243,7 @@ class Pipeline:
                 if len(outs) > 1:
                     raise ValueError(
                         f"source {e.name} has {len(outs)} downstream links; "
-                        f"a src pad links once (tee is not ported)")
+                        f"a src pad links once — use a tee to fan out")
             elif isinstance(e, SinkElement):
                 if len(ins) != 1 or outs:
                     raise ValueError(f"sink {e.name} needs exactly 1 input "
@@ -215,6 +252,11 @@ class Pipeline:
                 if not ins or len(outs) != 1:
                     raise ValueError(f"{e.name} needs at least one input and "
                                      f"exactly one output")
+            elif _fans_out(e):
+                if len(ins) != 1 or not outs:
+                    raise ValueError(
+                        f"tee {e.name} needs exactly one input and at "
+                        f"least one output branch")
             elif len(ins) != 1 or len(outs) != 1:
                 raise ValueError(f"element {e.name} must have exactly one "
                                  f"input and one output")
@@ -239,6 +281,14 @@ class Pipeline:
                     e.get_pad(ln.sink_pad)  # ensure the pad bag exists
                 spec = e.aggregate_spec({ln.sink_pad: ln.spec for ln in ins},
                                         outs[0].caps)
+            elif _fans_out(e):
+                spec = self._incoming(e)[0].spec
+                for ln in outs:
+                    if ln.caps is not None and not ln.caps.accepts(spec):
+                        raise ValueError(
+                            f"tee {e.name}: branch caps {ln.caps} reject "
+                            f"the stream spec {spec} (tee cannot convert; "
+                            f"put a convertscale on the branch)")
             else:
                 spec = e.transform_spec(self._incoming(e)[0].spec,
                                         outs[0].caps)
@@ -288,7 +338,8 @@ class Pipeline:
                     if not node.fold_into_aggregate_ok(i_s, o_s):
                         break
                     chain.append(node)
-                elif (isinstance(node, (SourceElement, SinkElement))
+                elif (_is_codec(node)
+                        or isinstance(node, (SourceElement, SinkElement))
                         or not node.is_passthrough(i_s, o_s)):
                     break
                 node = nouts[0].downstream
@@ -297,6 +348,7 @@ class Pipeline:
         return folds
 
     def build(self) -> None:
+        t0 = time.perf_counter()
         if not self._negotiated:
             self.negotiate()
         stages: List[Stage] = []
@@ -317,8 +369,10 @@ class Pipeline:
                 state[e.name] = e.init_state(None, out_spec, self.device)
                 continue
             in_spec = self._incoming(e)[0].spec
-            if id(e) in folded or e.is_passthrough(in_spec, out_spec):
-                # a folded overlay blends inside the compositor's fold
+            if (id(e) in folded or _is_codec(e)
+                    or e.is_passthrough(in_spec, out_spec)):
+                # a folded overlay blends inside the compositor's fold; a
+                # host codec encodes at its sink's edge
                 stages.append(Stage(e, in_spec, out_spec, True))
                 continue
             process = e.make_process(
@@ -334,6 +388,53 @@ class Pipeline:
         self.stages = stages
         self.state = state
         self._built_signature = self._static_signature()
+        self._codec_chain = self._collect_codec_chain()
+        for sink in self.sinks:
+            if self._codec_chain[sink.name] and not sink.HOST_PAYLOAD:
+                raise ValueError(
+                    f"{sink.name} renders device planes; a host codec "
+                    f"cannot precede it")
+        if self.device.type == "cuda":
+            from tpuvf_torch.kernels import _build
+
+            _build.load()  # the first-use kernel build counts as build time
+        self.stats = PipelineStats(
+            compile_seconds=time.perf_counter() - t0,
+            per_element_active={st.element.name: not st.passthrough
+                                for st in stages})
+
+    def _collect_codec_chain(self) -> Dict[str, List[Element]]:
+        """{sink name: host codecs} at each sink edge, upstream order (port
+        of tpuvf's ``_collect_codec_chain``, ``tpuvf/runtime/pipeline.py:
+        666-703``): the walk up from a sink goes through passthrough
+        elements (so ``pngenc ! queue ! filesink`` encodes) and stops at a
+        tee (a codec upstream of a fan-out would encode every branch).  A
+        codec no sink reaches this way would write unencoded bytes, so the
+        graph is rejected instead."""
+        passthrough = {id(st.element) for st in self.stages if st.passthrough}
+        chains: Dict[str, List[Element]] = {}
+        reachable: set = set()
+        for sink in self.sinks:
+            codecs: List[Element] = []
+            node = self._incoming(sink)[0].upstream
+            while node is not None and not _fans_out(node):
+                if _is_codec(node):
+                    codecs.append(node)
+                elif id(node) not in passthrough:
+                    break
+                ins = self._incoming(node)
+                node = ins[0].upstream if ins else None
+            codecs.reverse()
+            chains[sink.name] = codecs
+            reachable.update(id(c) for c in codecs)
+        stray = [e.name for e in self.elements
+                 if _is_codec(e) and id(e) not in reachable]
+        if stray:
+            raise ValueError(
+                f"host-codec element(s) {stray} must form a contiguous chain "
+                f"directly upstream of a sink (only passthrough elements "
+                f"in between)")
+        return chains
 
     # -- execution ---------------------------------------------------------
 
@@ -356,24 +457,33 @@ class Pipeline:
             self.sources[0].name]
 
     def upload_sources(self, host_frames: Dict) -> Dict[str, Dict]:
-        """{source name: host frame} -> {source name: device planes}."""
-        return {name: to_device(host_to_planes(
-                    frame, self._source_spec(self[name])), self.device)
-                for name, frame in host_frames.items()}
+        """{source name: host frame} -> {source name: device planes}: one
+        host copy into a fresh buffer (pinned on a GPU), one non-blocking
+        copy to the device, the split into canonical planes there."""
+        out = {}
+        for name, frame in host_frames.items():
+            spec = self._source_spec(self[name])
+            out[name] = from_host_layout(
+                HostLayout(spec).upload(frame, self.device), spec)
+        return out
 
-    def step(self, planes: Dict, state: Dict, params: Dict):
+    def step(self, planes: Dict, state: Dict, params: Dict,
+             frame_index: int = 0):
         """Run the built stages on the only source's device planes:
         -> (tail planes, state).  Launches work on the device and returns
         without waiting for it."""
         if len(self.sources) != 1:
             raise ValueError(f"{len(self.sources)} sources: use step_sources")
         return self.step_sources({self.sources[0].name: planes}, state,
-                                 params)
+                                 params, frame_index)
 
     def step_sources(self, inputs: Dict[str, Dict], state: Dict,
-                     params: Dict):
+                     params: Dict, frame_index: int = 0):
         """Run the built stages over the DAG on {source name: device planes,
-        optionally with ``"__meta__"``}: -> (tail planes, state)."""
+        optionally with ``"__meta__"``}: -> (tail planes, state), the tail
+        planes as ``{sink name: planes}`` when there is more than one sink.
+        A stage's failure raises PipelineError naming the element and
+        `frame_index` (Pipeline.run passes its loop's index)."""
         produced: Dict[int, Dict] = {}
 
         def value_of(elem) -> Dict:
@@ -410,10 +520,15 @@ class Pipeline:
                     if meta is not None:
                         out = dict(out, **{META: meta})  # flags travel
             except Exception as exc:
-                raise PipelineError(e.name, self.frames, exc) from exc
+                raise PipelineError(e.name, frame_index, exc) from exc
             produced[id(e)] = out
-        if self.sinks:
-            tail = value_of(self._incoming(self.sinks[0])[0].upstream)
+        sinks = self.sinks
+        if len(sinks) > 1:
+            return {sk.name: _strip_meta(value_of(
+                        self._incoming(sk)[0].upstream))
+                    for sk in sinks}, new_state
+        if sinks:
+            tail = value_of(self._incoming(sinks[0])[0].upstream)
         elif self.stages:
             tail = value_of(self.stages[-1].element)
         else:
@@ -424,10 +539,12 @@ class Pipeline:
 
     def _clock(self):
         """Output timeline rate (the aggregator's srcpad clock: the
-        negotiated tail spec's fps, max input fps for a compositor) plus
-        per-source timing info."""
+        negotiated tail spec's fps, max input fps for a compositor; with
+        several sinks the fastest branch tail's) plus per-source timing
+        info."""
         if self.sinks:
-            tail_spec = self._incoming(self.sinks[0])[0].spec
+            tail_spec = max((self._incoming(s)[0].spec for s in self.sinks),
+                            key=lambda sp: float(sp.fps))
         elif self.stages:
             tail_spec = self.stages[-1].out_spec
         else:
@@ -498,20 +615,30 @@ class Pipeline:
         return sel
 
     def run(self, num_frames: Optional[int] = None) -> int:
-        """Frame loop: select -> generate -> upload -> step -> readback ->
-        sink."""
+        """Frame loop with tpuvf's one-frame overlap (``tpuvf/runtime/
+        pipeline.py:1496-1636``).  Per frame i: upload frame i's new host
+        buffers, enqueue the step, enqueue each sink's host-layout
+        permutation (or render) and the copies to the host, record an
+        event; only then wait on frame i-1's event and hand frame i-1 to its
+        sinks.  A step failure first delivers the pending frame (best
+        effort; the original error wins); a sink failure reports the frame
+        it was consuming.  Every sink is finalized at the end of a run that
+        did not fail."""
         if (self._built_signature is None
                 or self._static_signature() != self._built_signature):
             self.build()  # not built yet, or a property write changed it
         out_fps, infos = self._clock()
         num_frames = self._clock_num_frames(out_fps, infos, num_frames)
-        sink = self.sinks[0] if self.sinks else None
-        sink_spec = self._incoming(sink)[0].spec if sink else None
         params = self.params()
         state = self.state
+        edge = self.stats.edge_seconds
         uploaded = {}  # source name -> (buffer index, device planes)
-        t0 = time.perf_counter()
+        pending = None
+        count = 0
+        clock = time.perf_counter
+        t_run = clock()
         for i in range(num_frames):
+            t0 = clock()
             inputs = {}
             for name, (j, meta) in self._select_buffers(
                     i, out_fps, infos).items():
@@ -522,15 +649,108 @@ class Pipeline:
                     cached = uploaded[name] = (
                         j, self.upload_sources({name: host})[name])
                 inputs[name] = dict(cached[1], **{META: meta})
-            out, state = self.step_sources(inputs, state, params)
-            self.state = state
-            if sink is not None:
-                sink.consume(planes_to_host(to_host(out), sink_spec),
-                             sink_spec, i)
-            self.frames += 1
+            t1 = clock()
+            try:
+                with trace(f"tpuvf_torch.step[{i}]"):
+                    out, state = self.step_sources(inputs, state, params, i)
+                self.state = state
+                t2 = clock()
+                readback = self._enqueue_readback(out, i)
+            except Exception:
+                self._flush_pending(pending)
+                raise
+            t3 = clock()
+            if pending is not None:
+                self._deliver(*pending)
+            pending = readback
+            count += 1
+            edge["upload"] += t1 - t0
+            edge["step"] += t2 - t1
+            edge["readback"] += t3 - t2
+        if pending is not None:
+            self._deliver(*pending)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.wall_seconds += time.perf_counter() - t0
-        if sink is not None:
+        self.stats.frames += count
+        self.stats.wall_seconds += clock() - t_run
+        _log.info("run complete: %s", self.stats.summary())
+        for sink in self.sinks:
             sink.finalize()
-        return num_frames
+        return count
+
+    def _ring_buffer(self, sink, layout: HostLayout, index: int):
+        """Sink `sink`'s readback buffer for frame `index`: one of two per
+        sink (pinned on a GPU), taken in turns, so frame i's copies never
+        land in frame i-1's, which is being delivered; a frame two later
+        reuses it after this one was delivered."""
+        ring = self._rings.get(sink.name)
+        if ring is None or ring[0].numel() != layout.nbytes:
+            pinned = self.device.type == "cuda"
+            ring = self._rings[sink.name] = [layout.buffer(pinned)
+                                            for _ in range(2)]
+        return ring[index % 2]
+
+    def _enqueue_readback(self, out, index: int):
+        """Frame `index`'s step output -> (index, [(sink, layout, host
+        buffer)], event): each sink's `device_payload` (the host-layout
+        permutation, a vfvideosink's render) enqueued on the device and its
+        non-blocking copies into the sink's readback buffer, then one event
+        recorded after them (None on the CPU)."""
+        sinks = self.sinks
+        copies = []
+        for sink in sinks:
+            planes = out[sink.name] if len(sinks) > 1 else out
+            spec = self._incoming(sink)[0].spec
+            try:
+                layout, pieces = sink.device_payload(planes, spec)
+                copies.append((sink, layout, layout.readback(
+                    pieces, self._ring_buffer(sink, layout, index))))
+            except Exception as exc:
+                raise PipelineError(sink.name, index, exc) from exc
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return index, copies, event
+
+    def _deliver(self, index: int, copies, event) -> None:
+        """Wait on frame `index`'s event, then run each sink's host codec
+        chain and `deliver` its payload (tpuvf's ``_consume_all``,
+        ``tpuvf/runtime/pipeline.py:1893-1914``), naming the sink whose
+        consume or codec failed.  A device fault that surfaces at the wait
+        names no element."""
+        edge = self.stats.edge_seconds
+        t0 = time.perf_counter()
+        if event is not None:
+            try:
+                event.synchronize()
+            except Exception as exc:
+                raise PipelineError("<pipeline>", index, exc) from exc
+        t1 = time.perf_counter()
+        for sink, layout, flat in copies:
+            try:
+                codecs = self._codec_chain.get(sink.name, ())
+                # the buffer is reused: a sink that keeps its frames gets
+                # arrays of its own (a codec makes new bytes)
+                payload = layout.payload(
+                    flat, copy=sink.KEEPS_PAYLOAD and not codecs)
+                spec = layout.spec
+                for codec in codecs:
+                    payload = codec.encode(payload, spec)
+                sink.deliver(payload, spec, index)
+            except Exception as exc:
+                raise PipelineError(sink.name, index, exc) from exc
+        edge["wait"] += t1 - t0
+        edge["consume"] += time.perf_counter() - t1
+
+    def _flush_pending(self, pending) -> None:
+        """Best-effort delivery of the deferred previous frame before a
+        failure propagates: its step already succeeded, so a filesink should
+        not end a frame short of the last good output.  Errors here are
+        swallowed: the original failure wins."""
+        if pending is None:
+            return
+        try:
+            self._deliver(*pending)
+        except Exception:  # noqa: BLE001 - the original failure wins
+            pass
