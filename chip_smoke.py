@@ -113,6 +113,21 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    enqueue, the readback's enqueue, the wait on the previous frame's
    event, and delivery (the copy for a sink that keeps its frames, codecs
    and sinks);
+(l) controllers, batched and live, 16 frames a path, each path's
+   launch counters set to 0 just before it and read just after: (b) at
+   NV12 3840x2160 with a 16-entry brightness ramp (`Element.control`)
+   under run() and under run_batched (two batches of 8), equal frame for
+   frame (0 LSB), frames 0 and 15 within 1 LSB of the CPU run, K1, K1b and
+   K2 launched under both; (g) greedy-H at 1080i under two run_batched
+   calls of 8 against two run() calls of 8 (the clock restarts each call,
+   the carried frame does not), 0 LSB, one K5 a frame, then reset() and 4
+   frames equal to a fresh pipeline's first 4; (f) with a sink_0::xpos
+   ramp, run() against run_batched, 0 LSB, K4 launched, frames 0 and 15
+   within 1 LSB of the CPU run; run_live on (a) at 30 fps: the period
+   between deliveries, frames_dropped and latency(); one navigation event
+   pair through (f) -> vfvideosink, routed (source and coordinates) as the
+   CPU run routes them; Pipeline fps of (b) under run() and run_batched in
+   turns, printed beside the card's name and power limit as a reading;
 5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
    b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
@@ -1355,17 +1370,17 @@ def _planes(frame):
     return frame if isinstance(frame, dict) else {"frame": frame}
 
 
-def counted_run(label, pipe, frames, expect):
-    """Pipeline.run with every launch counter set to 0 just before it and
-    read just after: every kernel of `expect` must launch, none of it
-    written "!K6" may, and one written "K6=8" must launch exactly that
-    often; -> {kernel: launches}."""
+def counted_run(label, pipe, frames, expect, drive=None):
+    """Pipeline.run (or `drive()`, which returns the frames it ran) with
+    every launch counter set to 0 just before it and read just after: every
+    kernel of `expect` must launch, none of it written "!K6" may, and one
+    written "K6=8" must launch exactly that often; -> {kernel: launches}."""
     import torch
 
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
-    n = pipe.run()
+    n = (drive or pipe.run)()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     if n != frames:
@@ -1419,10 +1434,10 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
         fail(f"{label}: frame 0 differs from the CPU run by {worst} LSB")
 
     inputs = pipe.upload_sources({k: v[0] for k, v in feeds.items()})
-    params, state = pipe.params(), pipe.state
+    state = pipe.state
 
-    def step():
-        return pipe.step_sources(inputs, state, params)
+    def step():  # as run() steps: params re-read, staged if one changed
+        return pipe.step_sources(inputs, state, pipe.params())
 
     step_ms = cuda_ms(step)
     step_us = host_us(step)
@@ -1443,14 +1458,15 @@ def phase_chain(label, desc, feeds, expect, opaque=False, tffs=None):
     return launches
 
 
-def run_fps(pipe):
-    """Pipeline.run's frames per second, upload and readback included, on
-    a pipeline that has run once (planned and allocated), and its host
-    edge, ms a frame per part (`PipelineStats.edge_seconds`)."""
+def run_fps(pipe, drive=None):
+    """Pipeline.run's (or `drive()`'s) frames per second, upload and
+    readback included, on a pipeline that has run once (planned and
+    allocated), and its host edge, ms a frame per part
+    (`PipelineStats.edge_seconds`)."""
     pipe.frames, pipe.wall_seconds = 0, 0.0
     edge = pipe.stats.edge_seconds
     edge.update(dict.fromkeys(edge, 0.0))
-    pipe.run()
+    (drive or pipe.run)()
     return (pipe.frames / pipe.wall_seconds,
             {k: v / pipe.frames * 1e3 for k, v in edge.items()})
 
@@ -1756,6 +1772,232 @@ def phase_file_chains(tmp):
     return total
 
 
+LFRAMES = 16  # phase (l)'s frames a path
+CHAIN_B = ("appsrc format=NV12 width=3840 height=2160 ! vfmetalconvertscale ! "
+           f"video/x-raw,format=BGRA,width=3840,height=2160 ! {BCS} ! appsink")
+
+
+def same_frames(label, got, want) -> None:
+    """Two runs' appsink frames, equal frame for frame (0 LSB)."""
+    import numpy as np
+
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} frames against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = _planes(a), _planes(b)
+        if any(not np.array_equal(a[k], b[k]) for k in b):
+            fail(f"{label}: frame {i} differs from run()'s")
+
+
+def ctl_b(label_run, card):
+    """(l) chain (b) at 4K with a 16-entry brightness ramp: run() against
+    run_batched (two batches of 8), 0 LSB frame for frame; frames 0 and 15
+    within 1 LSB of the CPU run; K1, K1b and K2 launched under both; then
+    fps of the two loops in turns, a reading."""
+    import numpy as np
+
+    ramp = [float(v) for v in np.linspace(0.02, 0.3, LFRAMES)]
+    feeds = {"appsrc0": nv12_frames(LFRAMES, 3840, 2160, seed=3841)}
+    pipes, launches = {}, {}
+    for mode in ("run", "run_batched"):
+        pipe = fed_pipeline(CHAIN_B, feeds, "cuda")
+        pipe["vfmetalvideofilter0"].control("brightness", ramp)
+        drive = (pipe.run if mode == "run" else
+                 lambda pipe=pipe: pipe.run_batched(LFRAMES, batch_size=8))
+        launches[mode] = counted_run(f"{label_run} {mode}", pipe, LFRAMES,
+                                     ("K1", "K1b", "K2"), drive)
+        pipes[mode] = pipe
+    got = pipes["run_batched"]["appsink0"].frames
+    same_frames(f"{label_run} run_batched", got, pipes["run"]["appsink0"]
+                .frames)
+    if np.array_equal(got[0], got[1]):
+        fail(f"{label_run}: the ramp did not animate")
+    # the chain keeps no state: frames 0 and 15 alone, with their ramp
+    # entries, give the CPU run's
+    cpu = fed_pipeline(CHAIN_B, {"appsrc0": [feeds["appsrc0"][0],
+                                             feeds["appsrc0"][-1]]}, "cpu")
+    cpu["vfmetalvideofilter0"].control("brightness", [ramp[0], ramp[-1]])
+    cpu.run()
+    worst = max(within(label_run, got[k], cpu["appsink0"].frames[c],
+                       f"frame {k}") for c, k in enumerate((0, LFRAMES - 1)))
+    fps, edges = {"run": [], "run_batched": []}, {}
+    for mode in ("run", "run_batched", "run_batched", "run"):
+        pipe = pipes[mode]
+        pipe["appsink0"].frames.clear()
+        if mode == "run":
+            rate, edges[mode] = run_fps(pipe)
+        else:
+            rate, edges[mode] = run_fps(
+                pipe, lambda pipe=pipe: pipe.run_batched(LFRAMES,
+                                                         batch_size=8))
+        fps[mode].append(rate)
+    counts = {m: ", ".join(f"{k} {v}" for k, v in launches[m].items() if v)
+              for m in launches}
+    print(f"[l controllers] {label_run}: run_batched (2 batches of 8) = "
+          f"run() 0 LSB on {LFRAMES} frames; frames 0, {LFRAMES - 1} vs CPU "
+          f"max {worst} LSB | launches run: {counts['run']}; run_batched: "
+          f"{counts['run_batched']}", flush=True)
+    print(f"[l fps] (b) 4K with the ramp, Pipeline wall fps in turns (run, "
+          f"batched, batched, run; a reading, no claim): run "
+          + ", ".join(f"{v:.2f}" for v in fps["run"]) + "; run_batched "
+          + ", ".join(f"{v:.2f}" for v in fps["run_batched"])
+          + f" | {card}", flush=True)
+    for mode, edge in edges.items():
+        print(f"[l edge] (b) {mode}, its last run: {edge_text(edge)}",
+              flush=True)
+    return launches
+
+
+def ctl_g():
+    """(l) chain (g), I420 1080i greedy-H: two calls of run_batched (batch
+    8) against two calls of run(), 0 LSB, one K5 a frame; then reset() and
+    4 frames, equal to a fresh pipeline's first 4."""
+    label = "(l) (g) greedy-H 1080i"
+    feeds = {"appsrc0": i420_moving_block(8, 1920, 1080, seed=45)}
+    pipes, launches = {}, {}
+    for mode in ("run", "run_batched"):
+        pipe = fed_pipeline(CONFIG4, feeds, "cuda")
+
+        def drive(pipe=pipe, mode=mode):
+            if mode == "run":
+                return pipe.run(8) + pipe.run(8)
+            return pipe.run_batched(8) + pipe.run_batched(8)
+
+        launches[mode] = counted_run(f"{label} {mode}", pipe, LFRAMES,
+                                     (f"K5={LFRAMES}", "!K1", "!K1b", "!K2"),
+                                     drive)
+        pipes[mode] = pipe
+    same_frames(f"{label} run_batched", pipes["run_batched"]["appsink0"]
+                .frames, pipes["run"]["appsink0"].frames)
+    pipe = pipes["run_batched"]
+    pipe.reset()
+    pipe["appsink0"].frames.clear()
+    pipe.run_batched(4, batch_size=4)
+    fresh = fed_pipeline(CONFIG4, feeds, "cuda")
+    fresh.run(4)
+    same_frames(f"{label} after reset()", pipe["appsink0"].frames,
+                fresh["appsink0"].frames)
+    print(f"[l controllers] {label}: run_batched(8) twice = run(8) twice, 0 "
+          f"LSB on {LFRAMES} frames, K5 {launches['run_batched']['K5']} "
+          f"({launches['run_batched']['K5'] / LFRAMES:g}/frame); reset() then "
+          f"4 frames = a fresh pipeline's first 4", flush=True)
+    return launches
+
+
+def ctl_f():
+    """(l) chain (f) with a sink_0::xpos ramp: run() against run_batched,
+    0 LSB, K4 launched; the draw moves with the ramp."""
+    import numpy as np
+
+    label = "(l) (f) sink_0::xpos ramp"
+    ramp = [-100 + 8 * k for k in range(LFRAMES)]
+    feeds = {"s0": nv12_frames(LFRAMES, 1920, 1080, seed=62),
+             "s1": rgba_frames(LFRAMES, 1280, 720, seed=63)}
+    pipes, launches = {}, {}
+    for mode in ("run", "run_batched"):
+        pipe = fed_pipeline(CHAIN_F, feeds, "cuda")
+        pipe["c"].control("sink_0::xpos", ramp)
+        drive = (pipe.run if mode == "run" else
+                 lambda pipe=pipe: pipe.run_batched(LFRAMES, batch_size=8))
+        launches[mode] = counted_run(f"{label} {mode}", pipe, LFRAMES,
+                                     ("K1", "K1b", "K2", "K4"), drive)
+        pipes[mode] = pipe
+    got = pipes["run_batched"]["appsink0"].frames
+    same_frames(f"{label} run_batched", got, pipes["run"]["appsink0"].frames)
+    cpu = fed_pipeline(CHAIN_F, {k: [v[0], v[-1]] for k, v in feeds.items()},
+                       "cpu")
+    cpu["c"].control("sink_0::xpos", [ramp[0], ramp[-1]])
+    cpu.run()
+    worst = 0
+    for c, k in enumerate((0, LFRAMES - 1)):
+        for p, want in cpu["appsink0"].frames[c].items():
+            worst = max(worst, within(label, got[k][p], want,
+                                      f"frame {k} {p}"))
+    if np.array_equal(got[0]["y"], got[1]["y"]):
+        fail(f"{label}: the pad did not move")
+    print(f"[l controllers] {label}: run_batched = run() 0 LSB on {LFRAMES} "
+          f"frames; frames 0, {LFRAMES - 1} vs CPU max {worst} LSB; K4 "
+          f"{launches['run_batched']['K4']}", flush=True)
+    return launches
+
+
+def live_a(card):
+    """(l) run_live on chain (a) at 30 fps: the achieved period between
+    deliveries, the ticks dropped and latency(), a reading."""
+    import time as _time
+
+    label = "(l) run_live (a) 30 fps"
+    desc = ("appsrc format=NV12 width=1920 height=1080 ! "
+            "video/x-raw,framerate=30/1 ! vfmetalconvertscale ! "
+            f"video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! appsink")
+    feeds = {"appsrc0": nv12_frames(LFRAMES, 1920, 1080, seed=30)}
+    pipe = fed_pipeline(desc, feeds, "cuda")
+    stamps, sink = [], pipe["appsink0"]
+    consume = sink.consume
+
+    def stamped(frame, spec, index):
+        stamps.append(_time.perf_counter())
+        consume(frame, spec, index)
+
+    sink.consume = stamped
+    # the frames run and the ticks dropped add up to the clock's 16
+    launches = counted_run(label, pipe, LFRAMES, ("K1", "K1b", "K2"),
+                           lambda: pipe.run_live(LFRAMES)
+                           + pipe.stats.frames_dropped)
+    dropped = pipe.stats.frames_dropped
+    if len(stamps) + dropped != LFRAMES:
+        fail(f"{label}: {len(stamps)} delivered + {dropped} dropped != "
+             f"{LFRAMES}")
+    # frame k is delivered at tick k + 1, the last one as the loop ends:
+    # the period is taken between the deliveries of frames 1 and n - 2
+    period = (stamps[-2] - stamps[1]) / (len(stamps) - 3) * 1e3
+    lo, hi = pipe.latency()
+    print(f"[l live] {label}: {len(stamps)} frames delivered, "
+          f"frames_dropped {dropped}, period between deliveries after the "
+          f"preroll {period:.2f} ms (clock 33.33 ms), latency() "
+          f"({lo:g}, {hi * 1e3:.2f} ms) | {card}", flush=True)
+    return launches
+
+
+def nav_f():
+    """(l) one navigation event through (f) -> vfvideosink: the routed
+    source and coordinates equal the CPU run's."""
+    label = "(l) navigation (f) -> vfvideosink"
+    desc = CHAIN_F.replace("! appsink", "! vfmetalvideosink", 1)
+    feeds = {"s0": nv12_frames(1, 1920, 1080, seed=64),
+             "s1": rgba_frames(1, 1280, 720, seed=65)}
+    routed = {}
+    for dev in ("cuda", "cpu"):
+        pipe = fed_pipeline(desc, feeds, dev)
+        pipe.run()
+        sink = pipe["vfmetalvideosink0"]
+        h, w = sink.window.shape[:2]  # the video's size: 1920x1080
+        # over the keep-aspect pad, then over the scaled NV12 pad only
+        for fx, fy in ((0.625, 0.555), (0.104, 0.277)):
+            sink.send_navigation_event("mouse-button-press", fx * w, fy * h)
+        routed[dev] = pipe.navigation_events
+    if routed["cuda"] != routed["cpu"] or len(routed["cuda"]) != 2:
+        fail(f"{label}: {routed['cuda']} against the CPU run's "
+             f"{routed['cpu']}")
+    print(f"[l navigation] {label}: " + "; ".join(
+        f"{ev['source']} at ({ev['pointer_x']:.3f}, {ev['pointer_y']:.3f})"
+        for ev in routed["cuda"]) + " = the CPU run's", flush=True)
+
+
+def phase_controllers(card):
+    """Phase (l): controllers, batched and live, 16 frames a path;
+    -> {kernel: launches summed over its paths}."""
+    total = {}
+    parts = [ctl_b("(l) (b) NV12 4K + brightness ramp", card), ctl_g(),
+             ctl_f(), {"live": live_a(card)}]
+    for part in parts:
+        for launches in part.values():
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    nav_f()
+    return total
+
+
 def phase_oracle(tmp):
     """Small chains on the card against tests/oracle (numpy Metal
     semantics; tolerance 2 LSB as in the repo's golden tests)."""
@@ -1986,10 +2228,10 @@ def host_steps() -> int:
             pipe = fed_pipeline(desc, feeds, "cuda", *tffs)
             pipe.run()
             inputs = pipe.upload_sources({k: v[0] for k, v in feeds.items()})
-            params, state = pipe.params(), pipe.state
+            state = pipe.state
 
-            def step(pipe=pipe, inputs=inputs, state=state, params=params):
-                return pipe.step_sources(inputs, state, params)
+            def step(pipe=pipe, inputs=inputs, state=state):
+                return pipe.step_sources(inputs, state, pipe.params())
 
             fps, edge = run_fps(pipe)
             print(f"[host] {label}: step {host_us(step):.1f} us (host clock, "
@@ -2031,7 +2273,7 @@ def main(argv) -> int:
     if argv:
         fail(f"unknown arguments {argv} (none, or --host-steps)")
     t0 = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     summary = {}
     phase_resample(summary)
@@ -2043,6 +2285,8 @@ def main(argv) -> int:
         phase_overlay(summary, tmp)
         launches = phase_chains(tmp)
         for k, v in phase_file_chains(tmp).items():
+            launches[k] += v
+        for k, v in phase_controllers(card).items():
             launches[k] += v
         phase_oracle(tmp)
     kernels = []

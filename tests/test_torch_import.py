@@ -7,7 +7,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from tpuvf_torch.runtime.pipeline import Pipeline, resolve_device
+from tpuvf_torch.runtime.device import get_device
+from tpuvf_torch.runtime.pipeline import Pipeline
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -58,5 +59,5 @@ def test_cuda_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         Pipeline(device="cuda")
     with pytest.raises(ValueError):
-        resolve_device("mps")
-    assert resolve_device("cpu") == torch.device("cpu")
+        get_device("mps")
+    assert get_device("cpu") == torch.device("cpu")

@@ -86,10 +86,10 @@ def test_passthrough_elements_are_elided():
     assert pipe["appsink0"].frames[0].shape == (24, 32, 4)
 
 
-def test_unported_features_raise():
-    """Sharpness, the packed 4:2:2 host repack and tee run now; what is
-    still not ported (batched runs, the launcher's -b/--batch and --live)
-    is refused."""
+def test_unported_features_raise(capsys):
+    """Sharpness, the packed 4:2:2 host repack and tee run, and so do
+    batched runs and the launcher's -b/--batch and --live on the CPU; what
+    is still not ported, run_batched's dp/sp mesh, is refused."""
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=BGRA,width=32,height=24"
         " ! vfmetalvideofilter sharpness=0.5 ! appsink", device="cpu")
@@ -106,9 +106,15 @@ def test_unported_features_raise():
     pipe = port_parse("videotestsrc num-buffers=1 ! tee ! appsink",
                       device="cpu")
     assert pipe.run() == 1
-    assert not hasattr(pipe, "run_batched")
-    for flag in ("-b", "--live"):
-        assert port_main([flag, "videotestsrc ! fakesink"]) == 2
+    assert pipe.run_batched(3, batch_size=2) == 1
+    with pytest.raises(NotImplementedError, match="dp/sp"):
+        pipe.run_batched(1, mesh=object())
+    desc = ("videotestsrc num-buffers=3 ! video/x-raw,format=BGRA,width=32,"
+            "height=24 ! vfmetalvideofilter brightness=0.1 ! fakesink")
+    for flags in (["-b", "2"], ["--live"]):
+        capsys.readouterr()
+        assert port_main(["--device", "cpu", *flags, desc]) == 0
+        assert "processed 3 frames on cpu" in capsys.readouterr().out
 
 
 def test_auto_field_order_per_buffer_flip():

@@ -9,6 +9,9 @@
     vfmetalcompositor name=comp sink_1::xpos=160 ... ! fakesink
     videotestsrc ! comp.sink_0  videotestsrc ! comp.sink_1
 
+``-b N`` runs `Pipeline.run_batched` with batches of N frames, ``--live``
+`Pipeline.run_live` (late ticks dropped, counted in the closing line).
+
 Grammar handled: `!` links, caps filter tokens (video/x-raw,...), element
 properties `key=value`, `name=` assignment, pad properties `pad::key=value`,
 named-pad references `name.pad` / `name.` both as link targets (sink pads)
@@ -143,7 +146,11 @@ def parse_pipeline(desc: str, device="cuda") -> Pipeline:
 
 
 def launch(desc: str, device="cuda", num_frames: Optional[int] = None,
-           quiet: bool = False, verbose: bool = False) -> int:
+           quiet: bool = False, verbose: bool = False, batch: int = 0,
+           live: bool = False) -> int:
+    """Parse, negotiate, build and run `desc` on `device`: `run_batched`
+    with `batch` > 1 (`num_frames` then defaults to the smallest
+    num-buffers, tpuvf's rule), `run_live` with `live`, else `run`."""
     pipe = parse_pipeline(desc, device=device)
     pipe.negotiate()
     if verbose:
@@ -153,10 +160,24 @@ def launch(desc: str, device="cuda", num_frames: Optional[int] = None,
             print(f"{ln.upstream.name} -> {ln.downstream.name}{pad}: "
                   f"{ln.spec}")
     pipe.build()
-    n = pipe.run(num_frames=num_frames)
+    if batch > 1:
+        if num_frames is None:
+            limits = [s.num_frames() for s in pipe.sources]
+            limits = [n for n in limits if n is not None]
+            if not limits:
+                raise ValueError("batched mode needs num_frames or "
+                                 "num-buffers")
+            num_frames = min(limits)
+        n = pipe.run_batched(num_frames, batch_size=batch)
+    elif live:
+        n = pipe.run_live(num_frames)
+    else:
+        n = pipe.run(num_frames=num_frames)
     if not quiet:
+        dropped = pipe.stats.frames_dropped
+        tail = f" ({dropped} dropped, live QoS)" if dropped else ""
         print(f"tpuvf_torch-launch: processed {n} frames on {pipe.device}, "
-              f"reached end of stream")
+              f"reached end of stream{tail}")
         if verbose:
             print(f"tpuvf_torch-launch: {pipe.stats.summary()}")
     return n
@@ -168,10 +189,16 @@ def main(argv=None) -> int:
     verbose = False
     quiet = False
     device = "cuda"
+    batch = 0
+    live = False
     while argv and argv[0].startswith("-"):
         flag = argv.pop(0)
         if flag in ("-n", "--num-frames"):
             num_frames = int(argv.pop(0))
+        elif flag in ("-b", "--batch"):
+            batch = int(argv.pop(0))
+        elif flag == "--live":
+            live = True
         elif flag == "--device":
             device = argv.pop(0)
         elif flag in ("-v", "--verbose"):
@@ -183,11 +210,12 @@ def main(argv=None) -> int:
             return 2
     if not argv:
         print("usage: python -m tpuvf_torch.cli.launch [--device cuda|cpu] "
-              "[-n N] [-v] [-q] PIPELINE", file=sys.stderr)
+              "[-n N] [-b BATCH] [--live] [-v] [-q] PIPELINE",
+              file=sys.stderr)
         return 2
     try:
         launch(" ".join(argv), device=device, num_frames=num_frames,
-               quiet=quiet, verbose=verbose)
+               quiet=quiet, verbose=verbose, batch=batch, live=live)
         return 0
     except Exception as exc:  # mirror gst-launch: error message + nonzero exit
         print(f"ERROR: {exc}", file=sys.stderr)

@@ -9,6 +9,12 @@ moved to the device there, so a frame does no host work but the launches.
 
 State is an explicit dict (videofilter's frame counter) carried by the
 runtime from one frame to the next.
+
+Per-frame property control (the GstController analog, tpuvf's
+``Element.control``): a schedule attached to a property is applied before
+every frame by `sync_frame`, which `Pipeline.run` and `Pipeline.run_batched`
+call with the output clock's frame index, so a ramp animates the same way
+under both.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ class Element:
     def __init__(self, name: Optional[str] = None, **props):
         self.name = name or f"{self.ELEMENT_NAME}0"
         self.props = PropertyBag(self.PROPERTIES)
+        # per-frame property schedules: name -> callable(frame) -> value, or
+        # a sequence indexed by frame
+        self._controllers = {}
         for key, value in props.items():
             self.props.set(key.replace("_", "-"), value)
 
@@ -50,6 +59,88 @@ class Element:
 
     def get_property(self, name: str):
         return self.props.get(name)
+
+    # -- per-frame property control (tpuvf/core/element.py:73-159) ----------
+
+    def control(self, name: str, values,
+                allow_structure_change: bool = False) -> None:
+        """Attach (or with values=None clear) a per-frame schedule for a
+        property: a callable(frame_index) -> value, or a sequence indexed by
+        the output clock's frame index (its last entry once exhausted).
+
+        A sequence is checked here: a value that flips a static effect gate
+        or the passthrough state against frame 0's raises at once, naming
+        the frame, since `Pipeline.run_batched` keeps one structure per
+        call.  Pass allow_structure_change=True for `Pipeline.run`, which
+        rebuilds per frame; a callable cannot be enumerated and is checked
+        at dispatch."""
+        if not self._ctl_has(name):
+            raise KeyError(f"no such property {name!r}")
+        if values is None:
+            self._controllers.pop(name, None)
+            return
+        if not callable(values):
+            values = list(values)
+            if not values:
+                raise ValueError(f"empty schedule for {name!r}")
+            if not allow_structure_change:
+                self._ctl_validate_schedule(name, values)
+        self._controllers[name] = values
+
+    def _ctl_validate_schedule(self, name: str, values) -> None:
+        """Raise at the first scheduled frame whose structure differs from
+        frame 0's; the property keeps its value."""
+        saved = self._ctl_get(name)
+        try:
+            self._ctl_set(name, values[0])
+            base = self._ctl_probe()
+            if base is None:  # not probeable without specs
+                return
+            for i, v in enumerate(values[1:], start=1):
+                self._ctl_set(name, v)
+                if self._ctl_probe() != base:
+                    raise ValueError(
+                        f"schedule for {name!r} changes pipeline structure "
+                        f"at frame {i} (value {v!r} flips a static effect "
+                        f"gate or the passthrough state vs frame 0's "
+                        f"{values[0]!r}) — one run_batched call keeps one "
+                        f"structure.  Keep the schedule on one side of the "
+                        f"gate, split it across run_batched calls, or pass "
+                        f"allow_structure_change=True and use run() "
+                        f"(rebuilds per frame)")
+        finally:
+            self._ctl_set(name, saved)
+
+    def _ctl_probe(self):
+        """Spec-free structural fingerprint for `control`; None when the
+        structure needs negotiated specs (checked at dispatch then)."""
+        try:
+            static = self.static_config(None, None)
+        except Exception:  # noqa: BLE001 - any failure means "not probeable"
+            return None
+        return (static, self.props.at_defaults())
+
+    # schedule targets: an element whose targets are not its own props (the
+    # compositor's "sink_0::xpos") overrides these three
+
+    def _ctl_has(self, name: str) -> bool:
+        return self.props.has(name)
+
+    def _ctl_get(self, name: str):
+        return self.props.get(name)
+
+    def _ctl_set(self, name: str, value) -> None:
+        self.set_property(name, value)
+
+    def sync_frame(self, frame: int) -> None:
+        """Apply every controlled property's value for output frame
+        `frame` (the gst_object_sync_values analog)."""
+        for name, values in self._controllers.items():
+            if callable(values):
+                v = values(frame)
+            else:
+                v = values[min(frame, len(values) - 1)]
+            self._ctl_set(name, v)
 
     # -- negotiation -------------------------------------------------------
 
@@ -98,14 +189,23 @@ class Element:
                 items.append((n, self.props.get(n)))
         return tuple(sorted(items))
 
-    def traced_params(self, device=None) -> Dict[str, torch.Tensor]:
-        """Per-frame traced parameter values (controllable floats) as 0-dim
-        float32 tensors on `device` (default: the CPU)."""
-        out = {}
-        for n, d in self.props.descriptors.items():
-            if d.traced:
-                out[n] = torch.tensor(float(self.props.get(n)),
-                                      dtype=torch.float32, device=device)
+    def traced_values(self, device=None) -> Tuple[Dict[str, float], Dict]:
+        """This frame's traced parameters, read on the host: (scalars the
+        step reads on the device, as Python floats, {name: float}; values
+        handed over as they are, such as a table already on `device` or
+        host numbers).  `Pipeline` stages the scalars on the device only
+        when one changed (`runtime/staging.py`)."""
+        return ({n: float(self.props.get(n))
+                 for n, d in self.props.descriptors.items() if d.traced}, {})
+
+    def traced_params(self, device=None) -> Dict:
+        """Per-frame traced parameters: the scalars of `traced_values` as
+        0-dim float32 tensors on `device` (default: the CPU), and its other
+        values as they are."""
+        scalars, other = self.traced_values(device)
+        out = {k: torch.tensor(v, dtype=torch.float32, device=device)
+               for k, v in scalars.items()}
+        out.update(other)
         return out
 
     def init_state(self, in_spec: FrameSpec, out_spec: FrameSpec, device=None):

@@ -182,7 +182,8 @@ class HostLayout:
     """The host byte layout of one spec as one flat buffer: its pieces lie
     back to back in `host_pieces`' order.  `readback` and `upload` move one
     frame through such a buffer, pinned when the device is a GPU, so the
-    copies are asynchronous.  `upload` takes a fresh buffer each call
+    copies are asynchronous (`upload_many` several frames through one).
+    `upload` takes a fresh buffer each call
     (PyTorch's caching host allocator reuses a freed pinned block only
     after the copies recorded on it are done); `readback` writes into a
     buffer of the caller's (`buffer`), which the caller must not reuse
@@ -235,24 +236,31 @@ class HostLayout:
         return flat
 
     def upload(self, host_frame, device) -> List[torch.Tensor]:
-        """One host frame -> its pieces on `device`: one host copy into a
-        fresh (pinned, on a GPU) buffer, one copy to the device,
-        non-blocking, then views of it."""
-        parts = [host_frame] if self.keys == [None] else [
-            host_frame[k] for k in self.keys]
-        flat = self.buffer(pinned=device.type == "cuda")
-        for view, arr, shape in zip(self._views(flat), parts, self.shapes):
-            arr = np.ascontiguousarray(arr, dtype=np.uint8)
-            bare_ok = self.keys != [None] or arr.shape == tuple(shape)
-            if arr.size != view.numel() or not bare_ok:
-                raise ValueError(
-                    f"{self.spec.format} host frame: expected {shape}, got "
-                    f"{arr.shape}")
-            if not arr.flags.writeable:  # torch wraps writable arrays only
-                arr = arr.copy()
-            # torch's copy runs on several threads
-            view.copy_(torch.from_numpy(arr).view(view.shape))
-        return self._views(flat.to(device, non_blocking=True))
+        """One host frame -> its pieces on `device` (`upload_many`)."""
+        return self.upload_many([host_frame], device)[0]
+
+    def upload_many(self, host_frames, device) -> List[List[torch.Tensor]]:
+        """Host frames -> each frame's pieces on `device`: one host copy
+        into a fresh buffer for all of them (pinned on a GPU), one copy to
+        the device, non-blocking, then views of it."""
+        flat = torch.empty((len(host_frames), self.nbytes), dtype=torch.uint8,
+                           pin_memory=device.type == "cuda")
+        for row, host_frame in zip(flat, host_frames):
+            parts = [host_frame] if self.keys == [None] else [
+                host_frame[k] for k in self.keys]
+            for view, arr, shape in zip(self._views(row), parts, self.shapes):
+                arr = np.ascontiguousarray(arr, dtype=np.uint8)
+                bare_ok = self.keys != [None] or arr.shape == tuple(shape)
+                if arr.size != view.numel() or not bare_ok:
+                    raise ValueError(
+                        f"{self.spec.format} host frame: expected {shape}, "
+                        f"got {arr.shape}")
+                if not arr.flags.writeable:  # torch wraps writable arrays only
+                    arr = arr.copy()
+                # torch's copy runs on several threads
+                view.copy_(torch.from_numpy(arr).view(view.shape))
+        return [self._views(row)
+                for row in flat.to(device, non_blocking=True)]
 
 
 def to_device(planes: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -36,9 +36,11 @@ float32 rect planes resampled at build time and its alpha read each frame
 from this element's params as ``fold.<name>.alpha``; the overlay's own
 stage is a passthrough.
 
-Not ported (ROADMAP): tpuvf's split/cells/masked/sp render bodies and
-``aggregate_split_ok`` (TPU layouts), ``navigation_event`` and the
-``_ctl_*`` controller hooks.
+Pad properties take schedules as ``control("sink_N::prop", ...)`` (the
+``_ctl_*`` hooks); `navigation_event` hit-tests the pads for the
+pipeline's navigation routing.  Not ported (ROADMAP): tpuvf's
+split/cells/masked/sp render bodies and ``aggregate_split_ok`` (TPU
+layouts).
 """
 
 from __future__ import annotations
@@ -206,6 +208,7 @@ class Compositor(Element):
         self.pads: Dict[str, PropertyBag] = {}
         self._pad_insert_order: Dict[str, int] = {}
         self._fold_elems = []  # the overlays the last make_aggregate folded
+        self._last_pad_specs: Dict[str, FrameSpec] = {}  # navigation_event
 
     # -- GstChildProxy analog: request pads ------------------------------
 
@@ -287,11 +290,35 @@ class Compositor(Element):
         )
         return base + (("pads", pads),)
 
-    def traced_params(self, device=None):
-        """tpuvf's per-pad params (same keys) as host numbers: xpos, ypos
-        and operator Python ints, alpha a Python float holding its float32
-        value.  `device` is not used: the prepare pass runs on the host."""
-        out = super().traced_params(device)
+    # -- pad property schedules ("sink_0::xpos", tpuvf/elements/compositor.py:
+    # 244-261): Element.control and sync_frame reach a pad's bag through
+    # these hooks, so a pad ramp rides the same per-frame machinery
+
+    def _ctl_has(self, name):
+        if "::" in name:
+            pad, prop = name.split("::", 1)
+            return self.get_pad(pad).has(prop)
+        return super()._ctl_has(name)
+
+    def _ctl_get(self, name):
+        if "::" in name:
+            pad, prop = name.split("::", 1)
+            return self.get_pad(pad).get(prop)
+        return super()._ctl_get(name)
+
+    def _ctl_set(self, name, value):
+        if "::" in name:
+            pad, prop = name.split("::", 1)
+            self.get_pad(pad).set(prop, value)
+            return
+        super()._ctl_set(name, value)
+
+    def traced_values(self, device=None):
+        """tpuvf's per-pad params (same keys) as host numbers, handed over
+        as they are: xpos, ypos and operator Python ints, alpha a Python
+        float holding its float32 value.  Nothing is staged on `device`:
+        the prepare pass runs on the host."""
+        scalars, out = super().traced_values(device)
         for name, bag in self.pads.items():
             out[f"pad.{name}.xpos"] = int(bag.get("xpos"))
             out[f"pad.{name}.ypos"] = int(bag.get("ypos"))
@@ -301,7 +328,30 @@ class Compositor(Element):
         for ov in self._fold_elems:
             out[f"fold.{ov.name}.alpha"] = float(np.float32(
                 ov.props.get("alpha")))
-        return out
+        return scalars, out
+
+    # -- navigation (src-pad events hit-tested per pad, m:705-787) ---------
+
+    def navigation_event(self, x: float, y: float, pad_specs=None,
+                         out_par: Fraction = Fraction(1, 1)):
+        """Map an output-space pointer position to (pad_name, pad_x, pad_y)
+        for the topmost pad whose rect contains it, rescaled into that
+        pad's input coordinates; None when no pad is hit (tpuvf's
+        ``navigation_event``, ``tpuvf/elements/compositor.py:280-298``)."""
+        pad_specs = pad_specs or self._last_pad_specs
+        if not pad_specs:
+            return None
+        for pad in reversed(self._sorted_pads(pad_specs)):  # top-down
+            w, h, x_off, y_off = pad.output_size(self, out_par)
+            if w == 0 or h == 0:
+                continue
+            px = pad.bag.get("xpos") + x_off
+            py = pad.bag.get("ypos") + y_off
+            if px <= x < px + w and py <= y < py + h:
+                ix = (x - px) * pad.spec.width / w
+                iy = (y - py) * pad.spec.height / h
+                return pad.name, ix, iy
+        return None
 
     # -- planning ----------------------------------------------------------
 
@@ -317,6 +367,7 @@ class Compositor(Element):
         last frame keeps drawing unless ignore-inactive-pads).
         `fold_overlays`: vfoverlay elements blended as final mix draws
         (module doc); the caller has checked that they can fold."""
+        self._last_pad_specs = dict(pad_specs)
         out_w, out_h = out_spec.width, out_spec.height
         ignore_inactive = bool(self.props.get("ignore-inactive-pads"))
         colors = background_colors(_BACKGROUNDS[self.props.get("background")])

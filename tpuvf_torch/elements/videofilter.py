@@ -142,10 +142,10 @@ class VideoFilter(Element):
             ("gates", gates),
         )
 
-    def traced_params(self, device=None):
-        """tpuvf's traced scalars (same names, same float32 values) as 0-dim
-        float32 tensors on `device`, plus the LUT table under "lut" when one
-        is loaded."""
+    def traced_values(self, device=None):
+        """tpuvf's traced scalars (same names; the step reads them as
+        float32), and the LUT table on `device` under "lut" when one is
+        loaded."""
         self._sync_lut()
         ck = self.props.get("chroma-key-color")
         values = {
@@ -169,14 +169,13 @@ class VideoFilter(Element):
             "key_tolerance": self.props.get("chroma-key-tolerance"),
             "key_smoothness": self.props.get("chroma-key-smoothness"),
         }
-        p = {k: torch.tensor(float(v), dtype=torch.float32, device=device)
-             for k, v in values.items()}
+        other = {}
         if self._lut is not None:
             dev = torch.device("cpu" if device is None else device)
             if dev not in self._lut_on:
                 self._lut_on[dev] = torch.from_numpy(self._lut).to(dev)
-            p["lut"] = self._lut_on[dev]
-        return p
+            other["lut"] = self._lut_on[dev]
+        return {k: float(v) for k, v in values.items()}, other
 
     def init_state(self, in_spec, out_spec, device=None):
         # frame counter for grain animation; reset on stop (m:372-381)

@@ -47,7 +47,7 @@ from tpuvf_torch.kernels.color import quant
 from tpuvf_torch.kernels.emit import emit
 from tpuvf_torch.kernels.resample import resample_cols, resample_rows
 from tpuvf_torch.kernels.sample import LINEAR
-from tpuvf_torch.runtime.pipeline import resolve_device
+from tpuvf_torch.runtime.device import get_device
 
 
 def center_rect(src_w, src_h, dst_w, dst_h, scaling=True):
@@ -236,6 +236,6 @@ class VideoSink(SinkElement):
     def consume(self, host_frame, spec: FrameSpec, frame_index: int) -> None:
         layout = HostLayout(spec)
         planes = from_host_layout(
-            layout.upload(host_frame, resolve_device(self.device)), spec)
+            layout.upload(host_frame, get_device(self.device)), spec)
         self.present(self.render_device(planes, spec).cpu().numpy(),
                      frame_index)

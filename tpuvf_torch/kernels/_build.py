@@ -4,7 +4,9 @@ Every ``csrc/*.cu`` source has a plain C interface.  `build` compiles each
 source to an object with its own ``nvcc -c`` (all started together, so the
 build takes as long as the slowest source), then links the objects with one
 ``nvcc -shared`` into a single library under ``tpuvf_torch/_build/``
-(git-ignored), which `load` opens with ctypes.  The sources include the
+(git-ignored; `set_build_dir`, which
+``runtime.device.enable_executable_cache`` calls, picks another
+directory), which `load` opens with ctypes.  The sources include the
 shared device header ``csrc/yuv420.cuh`` (found beside them, no ``-I``
 needed).  The library is rebuilt when it is missing or older than any source
 or header.  A failed build raises; nothing falls back to another path.
@@ -50,6 +52,16 @@ BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libtpuvf_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+
+
+def set_build_dir(path=None) -> Path:
+    """Build and load the library under `path` (default: the package's
+    ``_build``); -> the directory.  A library already loaded stays."""
+    global BUILD_DIR, LIBRARY
+    BUILD_DIR = Path(path) if path is not None else _PKG / "_build"
+    LIBRARY = BUILD_DIR / LIBRARY.name
+    return BUILD_DIR
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _EMIT_ARGS = (

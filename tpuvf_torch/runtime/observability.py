@@ -5,8 +5,9 @@
   syntax ("3", "pipeline:5,*:2"); categories live under the ``tpuvf_torch``
   logger.
 - ``PipelineStats`` counts frames and wall time per pipeline, the build
-  time (the first-use kernel build included) and, for the port's run loop,
-  the host time of each part of the frame edge.
+  time (the first-use kernel build included), the ticks a live run dropped
+  and, for the port's run loops, the host time of each part of the frame
+  edge.
 - ``trace()`` wraps a region in ``torch.profiler.record_function`` (a span
   in a torch.profiler trace) and logs its host-clock time at debug level.
 - Per-frame failures surface as ``PipelineError`` (the GST_FLOW_ERROR
@@ -89,6 +90,9 @@ class PipelineStats:
     frames: int = 0
     wall_seconds: float = 0.0
     compile_seconds: float = 0.0
+    # run_live: output clock ticks skipped because the pipeline was still
+    # busy at their deadline (QoS frame dropping)
+    frames_dropped: int = 0
     per_element_active: Dict[str, bool] = field(default_factory=dict)
     # host seconds of each part of Pipeline.run's frames (EDGE_PARTS):
     # upload (host copy + enqueued copy to the device), step (enqueue),
@@ -109,6 +113,8 @@ class PipelineStats:
             f"({self.fps:.1f} fps)",
             f"compile {self.compile_seconds:.2f}s",
         ]
+        if self.frames_dropped:
+            parts.append(f"dropped {self.frames_dropped} (live QoS)")
         if elided:
             parts.append(f"passthrough-elided: {', '.join(elided)}")
         return "; ".join(parts)

@@ -6,7 +6,10 @@ buffers (sampling matrices, border masks, the compositor's background),
 videofilter's corner-packed 3D-LUT table ``"lut"`` and the compositor's
 per-pad int32/float32 geometry, and `init_state()` gives numpy state such as
 videofilter's uint32 frame counter.  `from_tpuvf` turns those
-into what the port's `process` functions take on a device.
+into what the port's `process` functions take on a device, and
+`controllers_from_tpuvf` carries an element's property schedules
+(`Element.control`), so one animation set up on a tpuvf element runs on
+the port's as well.
 """
 
 from __future__ import annotations
@@ -99,3 +102,15 @@ def from_tpuvf(params: dict, state, device):
     else:
         out_state = state
     return out_params, out_state
+
+
+def controllers_from_tpuvf(tpuvf_element, element) -> None:
+    """Attach each of the tpuvf element's property schedules to the port's
+    `element` (`Element.control`): a sequence as a list of Python numbers
+    (numpy scalars converted), a callable as it is.  tpuvf checked each
+    sequence when it was attached, so none is checked again here."""
+    for name, values in tpuvf_element._controllers.items():
+        if not callable(values):
+            values = [v.item() if isinstance(v, np.generic) else v
+                      for v in values]
+        element.control(name, values, allow_structure_change=True)

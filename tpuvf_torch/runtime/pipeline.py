@@ -42,12 +42,21 @@
 - **Rebuilds** keep each element's carried state whose structure and
   tensor shapes still match (tpuvf's rule), so a property write that
   rebuilds does not restart a grain counter or drop a previous frame.
+- **Per-frame params and controllers**: before every frame `run` syncs the
+  controlled properties (`Element.control`) to the output clock's frame
+  index, rebuilds if a write changed the structure, and re-reads every
+  element's traced values, staging the scalars on the device only when one
+  changed (`runtime/staging.py`).  `run_batched` enqueues a batch's steps
+  back to back, its params staged as one (n, k) tensor; `run_live` paces
+  `run` on the output clock and drops late ticks.
+- **Navigation**: a vfvideosink's pointer events route upstream through
+  the compositors' hit tests to the source (`_wire_navigation`).
 
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
 available; nothing falls back to the CPU.  On the CPU the same loop runs
-with ordinary host buffers and no events.  Batched and live runs,
-controllers, navigation routing and tpuvf's split/quad/grid link layouts
-are not ported.
+with ordinary host buffers and no events.  tpuvf's dp/sp sharding
+(``run_batched(mesh=...)``) and its split/quad/grid link layouts are not
+ported.
 """
 
 from __future__ import annotations
@@ -62,28 +71,17 @@ import torch
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
 from tpuvf_torch.core.frame import HostLayout, from_host_layout
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
+from tpuvf_torch.runtime.device import get_device
 from tpuvf_torch.runtime.observability import (  # noqa: F401 - re-exported
     PipelineError,
     PipelineStats,
     get_logger,
     trace,
 )
+from tpuvf_torch.runtime.staging import ParamStager, read_params
 
 META = "__meta__"
 _log = get_logger("pipeline")
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device must be available."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available() "
-                f"is False")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
-    return dev
 
 
 @dataclass
@@ -141,7 +139,7 @@ def same_layout(old, new) -> bool:
 
 class Pipeline:
     def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
+        self.device = get_device(device)
         self.elements: List[Element] = []
         self.links: List[Link] = []
         self._by_name: Dict[str, Element] = {}
@@ -151,6 +149,8 @@ class Pipeline:
         self._built_signature = None
         self._codec_chain: Dict[str, List[Element]] = {}
         self._rings: Dict[str, List[torch.Tensor]] = {}
+        self._stager = ParamStager(self.device)
+        self.navigation_events: List[Dict] = []
         self.stats = PipelineStats()
 
     # Pipeline.run's totals (tpuvf's stats), readable and resettable here
@@ -402,6 +402,56 @@ class Pipeline:
             compile_seconds=time.perf_counter() - t0,
             per_element_active={st.element.name: not st.passthrough
                                 for st in stages})
+        self._wire_navigation()
+
+    def _wire_navigation(self) -> None:
+        """Route navigation events from the vfvideosink upstream (tpuvf's
+        ``_wire_navigation``, ``tpuvf/runtime/pipeline.py:607-664``): the
+        sink maps window coordinates into video space; a compositor on the
+        way hit-tests its pads (`Compositor.navigation_event`), rescales
+        into the hit pad's input and goes on up that branch; an element
+        that resizes rescales the coordinates (the videoscale src-event
+        convention).  The routed event, with the source's name, lands in
+        `navigation_events` and reaches the source's
+        ``navigation_callback`` if it has one; a pointer over no pad stops
+        at the compositor."""
+        from tpuvf_torch.elements.videosink import VideoSink
+
+        self.navigation_events = []
+        sink = next((s for s in self.sinks if isinstance(s, VideoSink)), None)
+        if sink is None:
+            return
+
+        def route(ev: Dict) -> None:
+            node = self._incoming(sink)[0].upstream
+            x, y = ev["pointer_x"], ev["pointer_y"]
+            while not isinstance(node, SourceElement):
+                ins = self._incoming(node)
+                if _is_aggregator(node):
+                    hit = node.navigation_event(
+                        x, y, {ln.sink_pad: ln.spec for ln in ins})
+                    if hit is None:
+                        return  # no pad under the pointer
+                    pad, x, y = hit
+                    node = next(ln.upstream for ln in ins
+                                if ln.sink_pad == pad)
+                    continue
+                if not ins:
+                    break
+                outs = self._outgoing(node)
+                if outs and outs[0].spec is not None:
+                    i_s, o_s = ins[0].spec, outs[0].spec
+                    if (i_s.width, i_s.height) != (o_s.width, o_s.height):
+                        x = x * i_s.width / o_s.width
+                        y = y * i_s.height / o_s.height
+                node = ins[0].upstream
+            routed = dict(ev, pointer_x=x, pointer_y=y, source=node.name)
+            self.navigation_events.append(routed)
+            callback = getattr(node, "navigation_callback", None)
+            if callback is not None:
+                callback(routed)
+
+        sink.navigation_callback = route
 
     def _collect_codec_chain(self) -> Dict[str, List[Element]]:
         """{sink name: host codecs} at each sink edge, upstream order (port
@@ -439,11 +489,12 @@ class Pipeline:
     # -- execution ---------------------------------------------------------
 
     def params(self) -> Dict[str, Dict]:
-        """Per-frame params of every active element (traced scalars as
-        0-dim tensors on the device; the compositor's pad geometry as host
-        numbers)."""
-        return {st.element.name: st.element.traced_params(self.device)
-                for st in self.stages if not st.passthrough}
+        """This frame's params of every active element (tpuvf's
+        ``_frame_params``): the traced values re-read, the scalars as 0-dim
+        views of one device vector staged again only when one changed
+        (`runtime/staging.py`); values such as the compositor's pad
+        geometry (host numbers) as the element hands them over."""
+        return self._stager.frame(read_params(self._active(), self.device))
 
     def _source_spec(self, source: SourceElement) -> FrameSpec:
         return self._outgoing(source)[0].spec
@@ -614,88 +665,346 @@ class Pipeline:
             })
         return sel
 
+    # -- per-frame params, controllers, rebuilds ------------------------------
+
+    def _active(self) -> List[Element]:
+        return [st.element for st in self.stages if not st.passthrough]
+
+    def _controlled(self) -> List[Element]:
+        return [e for e in self.elements if e._controllers]
+
+    def _maybe_rebuild(self) -> bool:
+        """Rebuild when a property write changed an element's static config
+        or passthrough state (tpuvf's ``_maybe_rebuild``); the build keeps
+        the carried state that still fits."""
+        if (self._built_signature is not None
+                and self._static_signature() == self._built_signature):
+            return False
+        _log.info("static property change -> rebuilding pipeline")
+        self.build()
+        return True
+
+    @staticmethod
+    def _structure(st: Stage):
+        if st.in_spec is None:  # an aggregator's plan is its build's
+            return None, False
+        e = st.element
+        return (e.static_config(st.in_spec, st.out_spec),
+                e.is_passthrough(st.in_spec, st.out_spec))
+
+    def _ctl_structure(self) -> Dict[str, tuple]:
+        """Static config and passthrough state of every controlled element:
+        `run_batched` keeps one structure per call (tpuvf's
+        ``_ctl_structure``, ``tpuvf/runtime/pipeline.py:744-760``)."""
+        return {st.element.name: self._structure(st) for st in self.stages
+                if st.element._controllers}
+
+    def _ctl_sync(self, frame: int, structure) -> None:
+        """Sync the controlled elements to `frame` and check that their
+        structure is still the call's (tpuvf's ``_ctl_frame_params``)."""
+        for st in self.stages:
+            el = st.element
+            if not el._controllers:
+                continue
+            el.sync_frame(frame)
+            if self._structure(st) != structure.get(el.name):
+                raise ValueError(
+                    f"controlled property schedule on {el.name!r} changes "
+                    f"pipeline structure at frame {frame} (static config "
+                    f"or passthrough flips) — run_batched keeps one "
+                    f"structure per call; use run() for structural "
+                    f"animation, or split the schedule across calls")
+
+    def reset(self) -> None:
+        """The PAUSED->READY analog (tpuvf's ``reset``,
+        ``tpuvf/runtime/pipeline.py:1347-1369``): drop the stages, the
+        built signature, the carried state (vfdeinterlace's previous frame,
+        vfvideofilter's grain counter), the codec chains, the readback
+        buffers, the staged params and the negotiation, so the next run
+        starts fresh."""
+        self.stages = []
+        self._built_signature = None
+        self.state = None
+        self._codec_chain = {}
+        self._rings = {}
+        self._stager = ParamStager(self.device)
+        self._negotiated = False
+
+    # -- frame loops --------------------------------------------------------
+
+    def latency(self):
+        """(min, max) latency in seconds, the GstAggregator latency-query
+        analog (tpuvf's ``latency``): 0 (nothing is buffered ahead of the
+        clock) and one output period (a live run emits or drops each tick
+        within one)."""
+        out_fps, _ = self._clock()
+        return 0.0, 1.0 / out_fps
+
+    def _paced_indices(self, num_frames, out_fps, time_fn, sleep_fn):
+        """Live pacing on the output clock (tpuvf's ``_paced_indices``,
+        ``tpuvf/runtime/pipeline.py:1451-1484``): frame 0 is the preroll,
+        unpaced (the first-use kernel build spends no tick); then frame k is
+        due at t0 + k/out_fps.  Early: sleep until it is due.  Late by a
+        full tick or more: the missed ticks are dropped
+        (`stats.frames_dropped`) and the loop goes on at the newest due
+        frame."""
+        if num_frames <= 0:
+            return
+        yield 0
+        t0 = time_fn()  # frame 0 presented now; frame k due at t0 + k/fps
+        k = 1
+        while k < num_frames:
+            due = int((time_fn() - t0) * out_fps)
+            if due > k:
+                skipped = min(due, num_frames) - k
+                self.stats.frames_dropped += skipped
+                _log.debug("live QoS: dropping %d late frame(s) at tick %d",
+                           skipped, k)
+                k += skipped
+                if k >= num_frames:
+                    return
+            deadline = t0 + k / out_fps
+            now = time_fn()
+            if now < deadline:
+                sleep_fn(deadline - now)
+            yield k
+            k += 1
+
+    def run_live(self, num_frames: Optional[int] = None, *, time_fn=None,
+                 sleep_fn=None) -> int:
+        """`run` paced on the output clock (`_paced_indices`): late ticks
+        are dropped into `stats.frames_dropped`; `time_fn` and `sleep_fn`
+        (default: time.perf_counter, time.sleep) can be injected.  With the
+        one-frame overlap the frame due at tick k is enqueued at tick k and
+        handed to its sinks at the next tick, after frame k+1's work is
+        enqueued: tpuvf's order, which consumes frame i-1 once frame i is
+        dispatched."""
+        return self._run(num_frames, (time_fn or time.perf_counter,
+                                      sleep_fn or time.sleep))
+
     def run(self, num_frames: Optional[int] = None) -> int:
         """Frame loop with tpuvf's one-frame overlap (``tpuvf/runtime/
-        pipeline.py:1496-1636``).  Per frame i: upload frame i's new host
-        buffers, enqueue the step, enqueue each sink's host-layout
-        permutation (or render) and the copies to the host, record an
-        event; only then wait on frame i-1's event and hand frame i-1 to its
-        sinks.  A step failure first delivers the pending frame (best
-        effort; the original error wins); a sink failure reports the frame
-        it was consuming.  Every sink is finalized at the end of a run that
-        did not fail."""
-        if (self._built_signature is None
-                or self._static_signature() != self._built_signature):
-            self.build()  # not built yet, or a property write changed it
+        pipeline.py:1496-1636``).  Per frame i: sync the controlled
+        properties to i and rebuild if a property write changed the
+        structure (carried state kept, upload cache cleared); re-read the
+        params; upload frame i's new host buffers; enqueue the step, each
+        sink's host-layout permutation (or render) and the copies to the
+        host, record an event; only then wait on frame i-1's event and hand
+        frame i-1 to its sinks.  So a property written while frame i-1 is
+        delivered takes effect at frame i+1, as in tpuvf.  A step failure
+        first delivers the pending frame (best effort; the original error
+        wins); a sink failure reports the frame it was consuming.  Every
+        sink is finalized at the end of a run that did not fail."""
+        return self._run(num_frames)
+
+    def _run(self, num_frames: Optional[int], pace=None) -> int:
+        if self._built_signature is None:
+            self.build()
         out_fps, infos = self._clock()
         num_frames = self._clock_num_frames(out_fps, infos, num_frames)
-        params = self.params()
+        # schedules index the output frame on the clock, the k that picks
+        # the sources' buffers
+        controlled = self._controlled()
+        indices = (range(num_frames) if pace is None
+                   else self._paced_indices(num_frames, out_fps, *pace))
         state = self.state
-        edge = self.stats.edge_seconds
         uploaded = {}  # source name -> (buffer index, device planes)
-        pending = None
+        pending = []  # frame i-1's readback, delivered after frame i's step
         count = 0
         clock = time.perf_counter
         t_run = clock()
-        for i in range(num_frames):
+        for i in indices:
             t0 = clock()
-            inputs = {}
-            for name, (j, meta) in self._select_buffers(
-                    i, out_fps, infos).items():
-                cached = uploaded.get(name)
-                if cached is None or cached[0] != j:
-                    src = self[name]
-                    host = src.generate(j, self._source_spec(src))
-                    cached = uploaded[name] = (
-                        j, self.upload_sources({name: host})[name])
-                inputs[name] = dict(cached[1], **{META: meta})
+            for el in controlled:
+                el.sync_frame(i)
+            self.state = state  # a rebuild merges the current carry
+            if self._maybe_rebuild():
+                state = self.state
+                uploaded.clear()
             t1 = clock()
             try:
+                inputs = {}
+                for name, (j, meta) in self._select_buffers(
+                        i, out_fps, infos).items():
+                    cached = uploaded.get(name)
+                    if cached is None or cached[0] != j:
+                        src = self[name]
+                        host = src.generate(j, self._source_spec(src))
+                        cached = uploaded[name] = (
+                            j, self.upload_sources({name: host})[name])
+                    inputs[name] = dict(cached[1], **{META: meta})
+                t2 = clock()
+                params = self.params()
                 with trace(f"tpuvf_torch.step[{i}]"):
                     out, state = self.step_sources(inputs, state, params, i)
                 self.state = state
-                t2 = clock()
-                readback = self._enqueue_readback(out, i)
+                t3 = clock()
+                # slots in turns by frames run, not by index: a live run
+                # skips indices
+                readback = self._enqueue_readback(out, i, count % 2)
             except Exception:
                 self._flush_pending(pending)
                 raise
-            t3 = clock()
-            if pending is not None:
-                self._deliver(*pending)
-            pending = readback
+            pending = self._hand_over(pending, [readback], t2 - t1,
+                                      (t1 - t0) + (t3 - t2), clock() - t3)
             count += 1
-            edge["upload"] += t1 - t0
-            edge["step"] += t2 - t1
-            edge["readback"] += t3 - t2
-        if pending is not None:
-            self._deliver(*pending)
+        return self._end_run(count, t_run, pending)
+
+    def _hand_over(self, pending, readbacks, upload: float, step: float,
+                   readback: float) -> list:
+        """The loops' common end of a frame (`run`) or a batch
+        (`run_batched`), once its readbacks are enqueued: add its host
+        seconds to `stats.edge_seconds`, then hand the frames enqueued one
+        frame or batch earlier to their sinks.  -> `readbacks`, the new
+        pending frames."""
+        edge = self.stats.edge_seconds
+        edge["upload"] += upload
+        edge["step"] += step
+        edge["readback"] += readback
+        for rb in pending:
+            self._deliver(*rb)
+        return readbacks
+
+    def _end_run(self, count: int, t_run: float, pending) -> int:
+        """Deliver the last pending frames, wait for the device, count the
+        run and finalize every sink."""
+        for rb in pending:
+            self._deliver(*rb)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats.frames += count
-        self.stats.wall_seconds += clock() - t_run
+        self.stats.wall_seconds += time.perf_counter() - t_run
         _log.info("run complete: %s", self.stats.summary())
         for sink in self.sinks:
             sink.finalize()
         return count
 
-    def _ring_buffer(self, sink, layout: HostLayout, index: int):
-        """Sink `sink`'s readback buffer for frame `index`: one of two per
-        sink (pinned on a GPU), taken in turns, so frame i's copies never
-        land in frame i-1's, which is being delivered; a frame two later
-        reuses it after this one was delivered."""
+    def run_batched(self, num_frames: int, batch_size: int = 8, mesh=None,
+                    sp_axis: Optional[str] = None,
+                    independent_streams: bool = False) -> int:
+        """Throughput mode (tpuvf's ``run_batched``, ``tpuvf/runtime/
+        pipeline.py:1916-2198``, without a mesh): `batch_size` frames a
+        batch, their steps enqueued back to back with no host wait.
+
+        On entry the controlled elements are synced to frame 0 and a
+        property write since the last build rebuilds; the structure then
+        stays for the call, and a schedule that changes it raises at the
+        first frame where it does.  Per batch: each frame's buffers picked
+        on the output clock, the batch's distinct buffers uploaded with one
+        host copy and one non-blocking copy per source, every frame's
+        params re-read after its controllers' sync and staged as one (n, k)
+        tensor with one copy, each frame reading its row; then the n steps
+        and each frame's readback into buffers of the batch's own (two sets
+        a sink, taken in turns per batch), one event a frame.  Batch b-1 is
+        handed to the sinks while batch b computes.  The carried state runs
+        through the frames in order, across batches and calls, and is
+        `run`'s.  A step failure raises PipelineError at the batch's first
+        frame index, as tpuvf's one dispatch a batch does; a sink failure
+        names its frame.
+
+        `mesh` and `sp_axis` (dp/sp sharding over several GPUs, tpuvf's
+        ``tpuvf/parallel/``) are a later slice of the port and raise;
+        `independent_streams`, tpuvf's assertion about dp shards, has no
+        effect without a mesh, as in tpuvf."""
+        if mesh is not None or sp_axis is not None:
+            raise NotImplementedError(
+                "run_batched(mesh=..., sp_axis=...): dp/sp sharding over "
+                "several GPUs (tpuvf/parallel/) is not ported yet; it is a "
+                "later slice of the port.  Run without a mesh")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if self._built_signature is None:
+            self.build()
+        controlled = self._controlled()
+        for el in controlled:
+            el.sync_frame(0)
+        self._maybe_rebuild()
+        out_fps, infos = self._clock()
+        num_frames = self._clock_num_frames(out_fps, infos, num_frames)
+        structure = self._ctl_structure()
+        state = self.state
+        pending: List[tuple] = []
+        done = batch = 0
+        clock = time.perf_counter
+        t_run = clock()
+        while done < num_frames:
+            n = min(batch_size, num_frames - done)
+            t0 = clock()
+            readbacks, t_step, t_read = [], 0.0, 0.0
+            try:
+                rows = []
+                for j in range(n):
+                    self._ctl_sync(done + j, structure)
+                    rows.append(read_params(self._active(), self.device))
+                params = self._stager.stage_rows(rows)
+                t1 = clock()
+                selections = [self._select_buffers(done + j, out_fps, infos)
+                              for j in range(n)]
+                planes = self._upload_batch(selections)
+                t2 = clock()
+                for j in range(n):
+                    ts = clock()
+                    inputs = {name: dict(planes[name, k], **{META: meta})
+                              for name, (k, meta) in selections[j].items()}
+                    with trace(f"tpuvf_torch.step[{done + j}]"):
+                        out, state = self.step_sources(inputs, state,
+                                                       params[j], done)
+                    self.state = state
+                    tr = clock()
+                    readbacks.append(self._enqueue_readback(
+                        out, done + j, (batch % 2) * batch_size + j))
+                    t_step += tr - ts
+                    t_read += clock() - tr
+            except Exception:
+                self._flush_pending(pending)
+                raise
+            pending = self._hand_over(pending, readbacks, t2 - t1,
+                                      (t1 - t0) + t_step, t_read)
+            done += n
+            batch += 1
+        return self._end_run(done, t_run, pending)
+
+    def _upload_batch(self, selections) -> Dict[tuple, Dict]:
+        """{(source name, buffer index): device planes} for the distinct
+        buffers a batch's `_select_buffers` picked: per source, one host
+        copy into one buffer and one non-blocking copy
+        (`HostLayout.upload_many`)."""
+        wanted: Dict[str, List[int]] = {}
+        for sel in selections:
+            for name, (j, _) in sel.items():
+                idx = wanted.setdefault(name, [])
+                if j not in idx:
+                    idx.append(j)
+        out = {}
+        for name, idx in wanted.items():
+            src = self[name]
+            spec = self._source_spec(src)
+            hosts = [src.generate(j, spec) for j in idx]
+            for j, pieces in zip(idx, HostLayout(spec).upload_many(
+                    hosts, self.device)):
+                out[name, j] = from_host_layout(pieces, spec)
+        return out
+
+    def _ring_buffer(self, sink, layout: HostLayout, slot: int):
+        """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  `run`
+        takes slots 0 and 1 in turns, so frame i's copies never land in
+        frame i-1's, which is being delivered, and a frame two later reuses
+        one after it was delivered; `run_batched` takes two sets of
+        batch_size slots, one set a batch in turns."""
         ring = self._rings.get(sink.name)
         if ring is None or ring[0].numel() != layout.nbytes:
-            pinned = self.device.type == "cuda"
-            ring = self._rings[sink.name] = [layout.buffer(pinned)
-                                            for _ in range(2)]
-        return ring[index % 2]
+            ring = self._rings[sink.name] = []
+        pinned = self.device.type == "cuda"
+        while len(ring) <= slot:
+            ring.append(layout.buffer(pinned))
+        return ring[slot]
 
-    def _enqueue_readback(self, out, index: int):
+    def _enqueue_readback(self, out, index: int, slot: int):
         """Frame `index`'s step output -> (index, [(sink, layout, host
         buffer)], event): each sink's `device_payload` (the host-layout
         permutation, a vfvideosink's render) enqueued on the device and its
-        non-blocking copies into the sink's readback buffer, then one event
-        recorded after them (None on the CPU)."""
+        non-blocking copies into the sink's readback buffer `slot`, then one
+        event recorded after them (None on the CPU)."""
         sinks = self.sinks
         copies = []
         for sink in sinks:
@@ -704,7 +1013,7 @@ class Pipeline:
             try:
                 layout, pieces = sink.device_payload(planes, spec)
                 copies.append((sink, layout, layout.readback(
-                    pieces, self._ring_buffer(sink, layout, index))))
+                    pieces, self._ring_buffer(sink, layout, slot))))
             except Exception as exc:
                 raise PipelineError(sink.name, index, exc) from exc
         event = None
@@ -744,13 +1053,13 @@ class Pipeline:
         edge["consume"] += time.perf_counter() - t1
 
     def _flush_pending(self, pending) -> None:
-        """Best-effort delivery of the deferred previous frame before a
-        failure propagates: its step already succeeded, so a filesink should
-        not end a frame short of the last good output.  Errors here are
-        swallowed: the original failure wins."""
-        if pending is None:
-            return
+        """Best-effort delivery of the deferred frames (the previous frame,
+        or the previous batch) before a failure propagates: their steps
+        already succeeded, so a filesink should not end short of the last
+        good output.  Errors here are swallowed: the original failure
+        wins."""
         try:
-            self._deliver(*pending)
+            for rb in pending:
+                self._deliver(*rb)
         except Exception:  # noqa: BLE001 - the original failure wins
             pass
