@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --host-steps   # only the chains' host-side times
+    python3 chip_smoke.py --mesh         # only the card, the build and (m)
 
 Phases (each prints its own lines; any failure exits 1 with no result line):
 
@@ -43,7 +44,8 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    folded overlay as a fifth (mix) draw, the same shape placed off the
    4-pixel grid on a 3838-wide canvas (every draw and the canvas on the
    scalar path), a checker background with negative positions and SOURCE,
-   and more draws than one launch holds; each line names each draw's path
+   more draws than one launch holds, and an sp band's canvas (its checker
+   from frame row 1084, `Background.row0`); each line names each draw's path
    (the launcher's rule, held to the Python mirror); its device time is
    also read from torch.profiler;
    K5 (deinterlace_frame: deinterlace_yuv420_u8 and deinterlace_u8,
@@ -128,6 +130,22 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    pair through (f) -> vfvideosink, routed (source and coordinates) as the
    CPU run routes them; Pipeline fps of (b) under run() and run_batched in
    turns, printed beside the card's name and power limit as a reading;
+(m) dp/sp sharding (`run_batched(mesh=make_mesh(...), sp_axis="sp")`),
+   on distinct cards where the machine has enough, else cuda:0 repeated
+   (the line [m devices] says which), every path held 0 LSB to the same
+   pipeline's unsharded run_batched on the card, 8 frames a path at full
+   width, each path's counters read alone and its launches printed beside
+   the unsharded run's (sp times as many; the compositor samples a pad
+   only on the bands its rect reaches): (b) on {dp 1, sp 2} and {dp 1,
+   sp 4}; (d) on {dp 1, sp 4} (the 4-row blur halo); (c) -> NV12 on {dp 1,
+   sp 2} (the chroma halo, the LUT, the YUV pack); (h) and (h') on {dp 1,
+   sp 2} (every row gathered); (g) on {dp 1, sp 2} over two calls of 8
+   (the banded previous frame); (e') on {dp 1, sp 2} (replicated pads, K4
+   and K6 per band); (b) with a 16-entry brightness ramp on {dp 2, sp 2}
+   against run(); (g) on {dp 2} with independent_streams=True against each
+   shard's frames as their own stream, and without the flag the
+   ValueError naming the deinterlacer; run_batched's fps with and without
+   the mesh in turns, a reading; and the phase's time;
 5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
    b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
@@ -879,6 +897,11 @@ def composite_cases(gen, tmp):
          [draw(1080, 1920, 400 + 97 * i, 240 + 61 * i, 150 * i - 201,
                80 * i - 33, i % 3, 0.15 + 0.08 * i, bool(i % 2))
           for i in range(11)]),
+        ("an sp band's canvas: 540 rows of a checker frame from row 1084 "
+         "(row0, off the 8-row cell), two draws", 540, 1920,
+         checker._replace(row0=1084),
+         [draw(540, 1920, 1280, 720, -100, -300, OP_OVER, 0.7, True),
+          draw(540, 1920, 700, 400, 611, 203, OP_SOURCE, 1.0, False)]),
     ]
 
 
@@ -986,7 +1009,9 @@ def launched_path(fn, label):
     kVec>, overlay_blend_kernel<kVec>: 16 or 1 columns)."""
     import re
 
-    names = {e.key for e in profiled(fn, 1) if KERNEL_NAMES[label] in e.key}
+    # a window of 3 calls: a one-call window has come back empty three
+    # times in a row on the card (the profiler's flake, not the kernel's)
+    names = {e.key for e in profiled(fn, 3) if KERNEL_NAMES[label] in e.key}
     if len(names) != 1:
         fail(f"{label}: expected one kernel, torch.profiler saw {names}")
     name = names.pop()
@@ -1998,6 +2023,246 @@ def phase_controllers(card):
     return total
 
 
+# -- phase (m): dp/sp sharding ------------------------------------------------
+
+
+def mesh_devices(k: int) -> list:
+    """k devices for a mesh: distinct cards where the machine has k, else
+    cuda:0 repeated (one card rehearsing the bands: they share it)."""
+    import torch
+
+    if torch.cuda.device_count() >= k:
+        return [f"cuda:{i}" for i in range(k)]
+    return ["cuda:0"] * k
+
+
+def mesh_of(axes: dict):
+    from tpuvf_torch.parallel.mesh import make_mesh
+
+    size = 1
+    for v in axes.values():
+        size *= v
+    return make_mesh(axes, devices=mesh_devices(size))
+
+
+def mesh_same(label, got, want) -> None:
+    """Frame for frame, 0 LSB, with the worst difference named."""
+    import numpy as np
+
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} frames against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = _planes(a), _planes(b)
+        for k in b:
+            if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+                d = (np.abs(a[k].astype(np.int32) - b[k].astype(np.int32))
+                     .max() if a[k].shape == b[k].shape else "shape")
+                fail(f"{label}: frame {i} plane {k} differs from the "
+                     f"unsharded run (max {d})")
+
+
+def launch_text(launches) -> str:
+    return ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+
+
+def mesh_path(label, desc, feeds, axes, expect, card, calls=1, exact=(),
+              **kw):
+    """Drive `desc` through run_batched on a mesh of `axes` (rows over
+    'sp' where the mesh has it) and unsharded, both on the card, `calls`
+    calls of the fed frames each (batch 8; each call's clock restarts at
+    buffer 0 while the carried state goes on); each run's counters set to
+    0 just before it and read just after.  The frames must be equal (0
+    LSB); the kernels of `exact` must launch sp times as often as
+    unsharded; then run_batched's fps with and without the mesh, a
+    reading.  -> the mesh run's launches."""
+    per = len(max(feeds.values(), key=len))
+    frames = per * calls
+    sp_axis = "sp" if "sp" in axes else None
+    mesh = mesh_of(axes)
+    plain = fed_pipeline(desc, feeds, "cuda")
+    sharded = fed_pipeline(desc, feeds, "cuda")
+
+    def drive_plain():
+        return sum(plain.run_batched(per, batch_size=FRAMES)
+                   for _ in range(calls))
+
+    def drive_mesh():
+        return sum(sharded.run_batched(per, batch_size=FRAMES, mesh=mesh,
+                                       sp_axis=sp_axis, **kw)
+                   for _ in range(calls))
+
+    want = counted_run(f"{label} unsharded", plain, frames, expect,
+                       drive_plain)
+    got = counted_run(f"{label} {axes}", sharded, frames, expect, drive_mesh)
+    mesh_same(f"{label} {axes}", sharded["appsink0"].frames,
+              plain["appsink0"].frames)
+    sp = axes.get("sp", 1)
+    wrong = {k: (got[k], want[k]) for k in exact if got[k] != sp * want[k]}
+    if wrong:
+        fail(f"{label} {axes}: launches (mesh, unsharded) {wrong}; expected "
+             f"sp={sp} times the unsharded count")
+    fps = {"unsharded": [], "mesh": []}
+    runs = {"unsharded": (plain, drive_plain), "mesh": (sharded, drive_mesh)}
+    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+        pipe, drive = runs[name]
+        pipe["appsink0"].frames.clear()
+        fps[name].append(run_fps(pipe, drive)[0])
+    devs = [str(d) for d in mesh.devices.flat]
+    print(f"[m mesh] {label} on {axes} ({', '.join(devs)}): = unsharded "
+          f"run_batched 0 LSB on {frames} frames ({calls} call"
+          f"{'s' if calls > 1 else ''}) | launches mesh: {launch_text(got)};"
+          f" unsharded: {launch_text(want)}", flush=True)
+    print(f"[m fps] {label} {axes}: run_batched fps in turns (unsharded, "
+          f"mesh, mesh, unsharded; a reading): unsharded "
+          + ", ".join(f"{v:.2f}" for v in fps["unsharded"]) + "; mesh "
+          + ", ".join(f"{v:.2f}" for v in fps["mesh"]) + f" | {card}",
+          flush=True)
+    return got
+
+
+def mesh_ramp(card):
+    """(b) 4K with a 16-entry brightness ramp on {dp: 2, sp: 2} against
+    run() (16 frames, two batches of 8)."""
+    import numpy as np
+
+    label = "(m) (b) 4K + brightness ramp"
+    axes = {"dp": 2, "sp": 2}
+    ramp = [float(v) for v in np.linspace(0.02, 0.3, LFRAMES)]
+    feeds = {"appsrc0": nv12_frames(LFRAMES, 3840, 2160, seed=3842)}
+    mesh = mesh_of(axes)
+    pipes = {}
+    for mode in ("run", "mesh"):
+        pipes[mode] = pipe = fed_pipeline(CHAIN_B, feeds, "cuda")
+        pipe["vfmetalvideofilter0"].control("brightness", ramp)
+    want = counted_run(f"{label} run", pipes["run"], LFRAMES,
+                       ("K1", "K1b", "K2"))
+    got = counted_run(f"{label} {axes}", pipes["mesh"], LFRAMES,
+                      ("K1", "K1b", "K2"),
+                      lambda: pipes["mesh"].run_batched(
+                          LFRAMES, batch_size=8, mesh=mesh, sp_axis="sp"))
+    mesh_same(f"{label} {axes}", pipes["mesh"]["appsink0"].frames,
+              pipes["run"]["appsink0"].frames)
+    frames = pipes["mesh"]["appsink0"].frames
+    if np.array_equal(frames[0], frames[1]):
+        fail(f"{label}: the ramp did not animate")
+    print(f"[m mesh] {label} on {axes} ("
+          f"{', '.join(str(d) for d in mesh.devices.flat)}): = run() 0 LSB "
+          f"on {LFRAMES} frames | launches mesh: {launch_text(got)}; run: "
+          f"{launch_text(want)} | {card}", flush=True)
+    return got
+
+
+def mesh_streams(card):
+    """(g) on {dp: 2} with independent_streams=True: each shard's 4 frames
+    equal their own unsharded stream; without the flag the run raises a
+    ValueError naming the deinterlacer."""
+    label = "(m) (g) greedy-H 1080i, dp=2"
+    frames = i420_moving_block(FRAMES, 1920, 1080, seed=46)
+    mesh = mesh_of({"dp": 2})
+    pipe = fed_pipeline(CONFIG4, {"appsrc0": frames}, "cuda")
+    got = counted_run(f"{label} independent_streams", pipe, FRAMES,
+                      (f"K5={FRAMES}", "!K1", "!K1b", "!K2"),
+                      lambda: pipe.run_batched(FRAMES, batch_size=FRAMES,
+                                               mesh=mesh,
+                                               independent_streams=True))
+    half = FRAMES // 2
+    for d in range(2):
+        own = fed_pipeline(CONFIG4, {"appsrc0": frames[d * half:
+                                                       (d + 1) * half]},
+                           "cuda")
+        own.run_batched(half, batch_size=half)
+        mesh_same(f"{label} shard {d}", pipe["appsink0"].frames[
+            d * half:(d + 1) * half], own["appsink0"].frames)
+    refused = fed_pipeline(CONFIG4, {"appsrc0": frames}, "cuda")
+    try:
+        refused.run_batched(FRAMES, batch_size=FRAMES, mesh=mesh)
+    except ValueError as exc:
+        if "vfmetaldeinterlace0" not in str(exc):
+            fail(f"{label}: the refusal does not name the deinterlacer: "
+                 f"{exc}")
+    else:
+        fail(f"{label}: dp=2 without independent_streams ran")
+    print(f"[m mesh] {label} ({', '.join(str(d) for d in mesh.devices.flat)}"
+          f"): independent_streams=True, each shard's {half} frames = its "
+          f"own unsharded stream, 0 LSB; K5 {got['K5']}; without the flag "
+          f"ValueError naming vfmetaldeinterlace0 | {card}", flush=True)
+    return got
+
+
+def phase_mesh(tmp, card):
+    """Phase (m): dp/sp sharding on the card; -> {kernel: launches summed
+    over the mesh runs}."""
+    import torch
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    print(f"[m devices] {n} CUDA device(s): "
+          + ("distinct cards for each mesh" if n >= 4 else
+             "meshes of more devices than that repeat cuda:0 (the bands "
+             "share the card: sp adds launches and gathers and buys "
+             "nothing here)"), flush=True)
+    lut17 = write_cube(Path(tmp) / "mesh17.cube", grade_cube(17, seed=18))
+    lut33 = write_cube(Path(tmp) / "mesh33.cube", grade_cube(33, seed=34))
+    red = red_png(Path(tmp) / "mesh-red.png")
+    sp1 = {"dp": 1, "sp": 2}
+    b = ("(m) (b) NV12 4K -> BGRA + b/c/s", CHAIN_B,
+         {"appsrc0": nv12_frames(FRAMES, 3840, 2160, seed=3843)},
+         ("K1", "K1b", "K2"))
+    paths = [
+        b + (sp1,), b + ({"dp": 1, "sp": 4},),
+        ("(m) (d) RGBA 1080p 17^3 LUT + contrast + sharpness",
+         f"appsrc format=RGBA width=1920 height=1080 ! vfmetalvideofilter "
+         f"lut-file={lut17} contrast=1.1 sharpness=0.5 ! vfmetalconvertscale "
+         f"! video/x-raw,format=BGRA ! appsink",
+         {"appsrc0": rgba_frames(FRAMES, 1920, 1080, seed=19)},
+         ("K2", "K3"), {"dp": 1, "sp": 4}),
+        ("(m) (c) config 3 -> NV12",
+         f"appsrc format=NV12 width=1920 height=1080 ! {CONFIG3} "
+         f"lut-file={lut33} ! appsink",
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=5)},
+         ("K1", "K1b", "K2", "K3"), sp1),
+        ("(m) (h) BGRA 640x480 clockwise, crop-left 32, crop-top 16",
+         "appsrc format=BGRA width=640 height=480 ! vfmetaltransform "
+         "method=clockwise crop-left=32 crop-top=16 ! appsink",
+         {"appsrc0": rgba_frames(FRAMES, 640, 480, seed=6)},
+         ("K1", "K1b", "K2"), sp1),
+        ("(m) (h') NV12 1080p counterclockwise, crop-right 64 -> NV12",
+         "appsrc format=NV12 width=1920 height=1080 ! vfmetaltransform "
+         "method=counterclockwise crop-right=64 ! appsink",
+         {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=23)},
+         ("K1", "K1b", "K2"), sp1),
+    ]
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for label, desc, feeds, expect, axes in paths:
+        add(mesh_path(label, desc, feeds, axes, expect, card,
+                      exact=expect))
+    add(mesh_path("(m) (g) greedy-H 1080i", CONFIG4,
+                  {"appsrc0": i420_moving_block(FRAMES, 1920, 1080,
+                                                seed=47)},
+                  sp1, ("K5", "!K1", "!K1b", "!K2"), card, calls=2,
+                  exact=("K5",)))
+    config5 = {"s0": rgba_frames(FRAMES, 3840, 2160, seed=54),
+               "s1": nv12_frames(FRAMES, 1920, 1080, seed=55),
+               "s2": rgba_frames(FRAMES, 1280, 720, seed=56),
+               "s3": nv12_frames(FRAMES, 1280, 720, seed=57)}
+    # the pads are sampled by the band their rect reaches: K1/K1b/K2 are
+    # not sp times as many
+    add(mesh_path("(m) (e') config 5 -> NV12 4K + overlay (K6)",
+                  CONFIG5.format(png=red, fmt="NV12"), config5, sp1,
+                  ("K1", "K1b", "K2", "K4", "K6"), card,
+                  exact=("K4", "K6")))
+    add(mesh_ramp(card))
+    add(mesh_streams(card))
+    print(f"[m time] phase (m) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
 def phase_oracle(tmp):
     """Small chains on the card against tests/oracle (numpy Metal
     semantics; tolerance 2 LSB as in the repo's golden tests)."""
@@ -2270,8 +2535,14 @@ def main(argv) -> int:
         fail(f"run from the root of a tpuvf checkout ({exc})")
     if argv == ["--host-steps"]:
         return host_steps()
+    if argv == ["--mesh"]:
+        card = phase_card()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_mesh(tmp, card)
+        return 0
     if argv:
-        fail(f"unknown arguments {argv} (none, or --host-steps)")
+        fail(f"unknown arguments {argv} (none, --host-steps or --mesh)")
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
@@ -2287,6 +2558,8 @@ def main(argv) -> int:
         for k, v in phase_file_chains(tmp).items():
             launches[k] += v
         for k, v in phase_controllers(card).items():
+            launches[k] += v
+        for k, v in phase_mesh(tmp, card).items():
             launches[k] += v
         phase_oracle(tmp)
     kernels = []

@@ -18,6 +18,7 @@ import torch
 
 from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
 from tpuvf_torch.cli.launch import parse_pipeline as port_parse_on
+from tpuvf_torch.parallel.mesh import make_mesh
 from tpuvf_torch.runtime.observability import PipelineError
 from tpuvf_torch.runtime.params import controllers_from_tpuvf
 
@@ -390,7 +391,39 @@ def test_batched_failure_names_the_batch_first_frame():
 
 
 def test_batched_with_a_mesh_raises():
+    """tpuvf's refusals of a mesh run: no 'dp' axis, a batch that does not
+    split over dp, an sp axis the mesh does not have; `sp_axis` without a
+    mesh runs, as in tpuvf (it reads the axis only under a mesh)."""
     p = port_parse(DESC)
-    for kw in (dict(mesh=object()), dict(sp_axis="sp")):
-        with pytest.raises(NotImplementedError, match="dp/sp"):
-            p.run_batched(8, **kw)
+    cpu4 = ["cpu"] * 4
+    with pytest.raises(ValueError, match="has no 'dp' axis"):
+        p.run_batched(8, mesh=make_mesh({"sp": 4}, devices=cpu4))
+    with pytest.raises(ValueError, match="must divide by dp=4"):
+        p.run_batched(8, batch_size=6, mesh=make_mesh({"dp": 4},
+                                                       devices=cpu4))
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        p.run_batched(8, mesh=make_mesh({"dp": 2}, devices=cpu4),
+                      sp_axis="sp")
+    assert p.run_batched(8, sp_axis="sp") == 8
+    assert len(p.sinks[0].frames) == 8
+
+
+@pytest.mark.parametrize("desc,elem,prop,schedule", [
+    (CHAIN_B, _vf, "brightness", RAMP),
+    (COMP_DESC, _comp, "sink_1::xpos", XPOS_RAMP),
+], ids=["videofilter", "compositor"])
+def test_controllers_under_dp_sp_match_run(desc, elem, prop, schedule):
+    """Per-frame schedules under a {dp: 2, sp: 2} mesh (tpuvf's
+    ``frame_params``: the rows split over dp, replicated over sp) give
+    run()'s frames, 0 LSB."""
+    want = _run(port_parse, schedule, batched=False, desc=desc, prop=prop,
+                elem=elem)
+    p = port_parse(desc)
+    elem(p).control(prop, schedule)
+    mesh = make_mesh({"dp": 2, "sp": 2}, devices=["cpu"] * 4)
+    assert p.run_batched(8, batch_size=4, mesh=mesh, sp_axis="sp") == 8
+    got = _frames(p)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got[0], got[1])

@@ -31,7 +31,9 @@ MODULES = [
     "tpuvf_torch.elements.sinks", "tpuvf_torch.elements.sources",
     "tpuvf_torch.elements.util_elements", "tpuvf_torch.elements.videosink",
     "tpuvf_torch.io.png", "tpuvf_torch.io.y4m", "tpuvf_torch.native",
-    "tpuvf_torch.native.jpeg",
+    "tpuvf_torch.native.jpeg", "tpuvf_torch.parallel",
+    "tpuvf_torch.parallel.bands", "tpuvf_torch.parallel.halo",
+    "tpuvf_torch.parallel.mesh",
 ]
 
 

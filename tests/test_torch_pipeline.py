@@ -14,6 +14,7 @@ import torch
 
 from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
 from tpuvf_torch.cli.launch import main as port_main, parse_pipeline as port_parse
+from tpuvf_torch.parallel.mesh import make_mesh
 from tpuvf_torch.runtime.pipeline import Pipeline
 
 torch.set_num_threads(1)
@@ -88,8 +89,9 @@ def test_passthrough_elements_are_elided():
 
 def test_unported_features_raise(capsys):
     """Sharpness, the packed 4:2:2 host repack and tee run, and so do
-    batched runs and the launcher's -b/--batch and --live on the CPU; what
-    is still not ported, run_batched's dp/sp mesh, is refused."""
+    batched runs and the launcher's -b/--batch and --live on the CPU;
+    run_batched's `sp_axis` without a mesh is ignored, as in tpuvf, and a
+    mesh without a 'dp' axis is refused with tpuvf's error."""
     pipe = port_parse(
         "videotestsrc num-buffers=1 ! video/x-raw,format=BGRA,width=32,height=24"
         " ! vfmetalvideofilter sharpness=0.5 ! appsink", device="cpu")
@@ -107,8 +109,9 @@ def test_unported_features_raise(capsys):
                       device="cpu")
     assert pipe.run() == 1
     assert pipe.run_batched(3, batch_size=2) == 1
-    with pytest.raises(NotImplementedError, match="dp/sp"):
-        pipe.run_batched(1, mesh=object())
+    assert pipe.run_batched(1, sp_axis="sp") == 1
+    with pytest.raises(ValueError, match="has no 'dp' axis"):
+        pipe.run_batched(1, mesh=make_mesh({"sp": 2}, devices=["cpu"] * 2))
     desc = ("videotestsrc num-buffers=3 ! video/x-raw,format=BGRA,width=32,"
             "height=24 ! vfmetalvideofilter brightness=0.1 ! fakesink")
     for flags in (["-b", "2"], ["--live"]):

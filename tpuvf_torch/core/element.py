@@ -212,9 +212,43 @@ class Element:
         return ()
 
     def make_process(
-        self, in_spec: FrameSpec, out_spec: FrameSpec, static, device
+        self, in_spec: FrameSpec, out_spec: FrameSpec, static, device,
+        band=None,
     ) -> ProcessFn:
+        """Plan the frame's process on `device`.  With `band` (a
+        ``parallel.bands.Band``, only for an element that answers
+        `sp_row_shardable`) the process is handed the input rows
+        ``[band.in_lo, band.in_hi)`` of each plane (and of its plane-shaped
+        state) and returns the output rows ``[band.lo, band.hi)``; its
+        tables are the frame's, sliced to those rows."""
         raise NotImplementedError
+
+    # -- dp/sp sharding (tpuvf/core/element.py:258-284) ---------------------
+
+    def dp_shard_safe(self, in_spec: FrameSpec, out_spec: FrameSpec) -> bool:
+        """Whether the output does not depend on cross-frame state, so one
+        stream may be batch-split across dp shards, each with its own
+        history.  An element whose carried state feeds its output
+        (vfdeinterlace weave/greedy-H, vfvideofilter's grain counter)
+        answers False, and ``run_batched(mesh=...)`` then needs
+        ``independent_streams=True``."""
+        return True
+
+    def sp_row_shardable(self, in_spec: FrameSpec,
+                         out_spec: FrameSpec) -> bool:
+        """Whether the element runs on a row band of its planes under
+        ``run_batched(mesh, sp_axis=...)`` (tpuvf's predicate as it answers
+        for builds with no phase links).  False by default; run_batched then
+        refuses the sp request."""
+        return False
+
+    def band_reach(self, in_spec: FrameSpec, out_spec: FrameSpec):
+        """Input rows a band's build reads past the band on each interior
+        side: the element's whole vertical reach, rounded up to even rows
+        (0 for a row-local element), or ``bands.ALL`` (None) where the
+        output rows depend on rows anywhere in the frame (a resampling
+        over H, a rotation)."""
+        return None
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

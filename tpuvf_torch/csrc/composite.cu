@@ -9,7 +9,7 @@
 // of every draw covering it over the background, quantizing to the RGBA8
 // render target after each draw, and writes the canvas once:
 //
-//   v = bg_drawn ? bg[((x >> 3) + (y >> 3)) & 1] : 0      (or the canvas,
+//   v = bg_drawn ? bg[((x >> 3) + ((y + row0) >> 3)) & 1] : 0  (or the canvas,
 //       when this launch continues a chain of more than kMaxDraws draws)
 //   for each draw d whose clamped rect holds (x, y):
 //     s   = source texel at (y - d.y, x - d.x): dequant (u8) or as is (f32)
@@ -94,6 +94,7 @@ struct FoldParams {
   int width;
   int bg_drawn;
   int from_canvas;
+  int row0;  // the frame row of canvas row 0 (a row band's checker)
   uint8_t bg[2][4];  // [checker cell][r, g, b, a]
 };
 
@@ -169,7 +170,7 @@ composite_fold_kernel(const FoldParams p, uint8_t* __restrict__ out) {
       }
     } else {
       // the 4 lanes share x >> 3: a quad never straddles a checker cell
-      const int cell = ((x >> 3) + (y >> 3)) & 1;
+      const int cell = ((x >> 3) + ((y + p.row0) >> 3)) & 1;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
 #pragma unroll
@@ -232,21 +233,16 @@ bool draw_vector(const void* src, int src_f32, int width, int x) {
 }
 
 // The grid: enough blocks for one trip over the canvas's quads, at most the
-// blocks the card holds resident at once (asked once per kernel).
+// blocks the card holds resident at once (asked once per kernel and card,
+// `resident_blocks`).
 template <bool kVecCanvas>
 void launch(const FoldParams& p, uint8_t* out, unsigned quads,
             cudaStream_t stream) {
-  static int resident = 0;
+  static PerDevice resident = {};
   const auto kernel = composite_fold_kernel<kVecCanvas>;
-  if (resident == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  const int blocks = resident_blocks(kernel, kThreads, resident);
   const long long needed = (static_cast<long long>(quads) + kThreads - 1) / kThreads;
-  kernel<<<static_cast<int>(needed < resident ? needed : resident), kThreads, 0,
+  kernel<<<static_cast<int>(needed < blocks ? needed : blocks), kThreads, 0,
            stream>>>(p, out);
 }
 

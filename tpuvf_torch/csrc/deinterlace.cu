@@ -263,7 +263,7 @@ deinterlace_pair_kernel(const FieldArgs a) {
 
 template <int kCols, bool kVec, bool kYuvIn, bool kYuvOut>
 cudaError_t launch(const FieldArgs& a, cudaStream_t stream) {
-  static int resident = 0;
+  static PerDevice resident = {};
   const long long items = static_cast<long long>((a.height + 1) / 2) *
                           ((a.width + kCols - 1) / kCols);
   return launch_resident(deinterlace_pair_kernel<kCols, kVec, kYuvIn, kYuvOut>,

@@ -581,23 +581,18 @@ emit_kernel(const EmitArgs<T> a) {
 }
 
 // The grid: enough blocks for one trip of the loop over the frame, at most
-// the blocks the card holds resident at once (asked once per kernel).
+// the blocks the card holds resident at once (asked once per kernel and
+// card, `resident_blocks`).
 template <typename T, bool kRgba, bool kVector>
 void launch(const EmitArgs<T>& a, cudaStream_t stream) {
-  static int resident = 0;
+  static PerDevice resident = {};
   const auto kernel = emit_kernel<T, kRgba, kVector>;
-  if (resident == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
+  const int blocks = resident_blocks(kernel, kThreads, resident);
   const long long plane = static_cast<long long>(a.height) * a.width;
   const long long items = kVector ? plane / kVec : plane;
   const long long needed = (items + kThreads - 1) / kThreads;
-  kernel<<<static_cast<int>(needed < resident ? needed : resident), kThreads,
-           0, stream>>>(a);
+  kernel<<<static_cast<int>(needed < blocks ? needed : blocks), kThreads, 0,
+           stream>>>(a);
 }
 
 template <typename T>

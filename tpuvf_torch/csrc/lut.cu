@@ -230,16 +230,19 @@ bool vector_planes(const float* in, const void* out, int n, int quantize) {
 // most the blocks the card holds resident at once with this launch's
 // shared memory (the persistent grid of the shared-memory path, whose
 // blocks each copy the table in once; asked again when the size changes).
+// Kept per card (`device`, below kMaxDevices): one process may launch on
+// several, and the shared-memory attribute belongs to one device.
+constexpr int kMaxDevices = 64;
+
 template <bool kQuantize, bool kShared, bool kVector>
 void launch(const float* in, const float* table, int size, int n, void* out,
-            cudaStream_t stream) {
-  static int resident = 0, resident_size = 0;
+            int device, cudaStream_t stream) {
+  static int resident[kMaxDevices] = {}, resident_size[kMaxDevices] = {};
   const auto kernel = lut3d_kernel<kQuantize, kShared, kVector>;
   const int threads = kShared ? kSharedThreads : kThreads;
   const size_t smem = kShared ? sizeof(float4) * size * size * size : 0;
-  if (resident == 0 || resident_size != size) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
+  if (resident[device] == 0 || resident_size[device] != size) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (kShared) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -247,29 +250,33 @@ void launch(const float* in, const float* table, int size, int n, void* out,
                                             kMaxSharedSize * kMaxSharedSize));
     }
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-    resident_size = size;
+    resident[device] = sms * (per_sm > 0 ? per_sm : 1);
+    resident_size[device] = size;
   }
   const long long per_block = static_cast<long long>(threads) * (kVector ? kVec : 1);
   const long long needed = (n + per_block - 1) / per_block;
-  kernel<<<static_cast<int>(needed < resident ? needed : resident), threads,
-           smem, stream>>>(in, table, size, n, out);
+  kernel<<<static_cast<int>(needed < resident[device] ? needed
+                                                      : resident[device]),
+           threads, smem, stream>>>(in, table, size, n, out);
 }
 
 template <bool kQuantize, bool kShared>
 void launch_vector(const float* in, const float* table, int size, int n,
-                   void* out, bool vector, cudaStream_t stream) {
-  vector ? launch<kQuantize, kShared, true>(in, table, size, n, out, stream)
-         : launch<kQuantize, kShared, false>(in, table, size, n, out, stream);
+                   void* out, bool vector, int device, cudaStream_t stream) {
+  vector ? launch<kQuantize, kShared, true>(in, table, size, n, out, device,
+                                            stream)
+         : launch<kQuantize, kShared, false>(in, table, size, n, out, device,
+                                             stream);
 }
 
 template <bool kQuantize>
 void launch_path(const float* in, const float* table, int size, int n,
-                 void* out, bool vector, cudaStream_t stream) {
+                 void* out, bool vector, int device, cudaStream_t stream) {
   table_path(size) == kPathShared
-      ? launch_vector<kQuantize, true>(in, table, size, n, out, vector, stream)
+      ? launch_vector<kQuantize, true>(in, table, size, n, out, vector,
+                                       device, stream)
       : launch_vector<kQuantize, false>(in, table, size, n, out, vector,
-                                        stream);
+                                        device, stream);
 }
 
 }  // namespace
@@ -283,9 +290,15 @@ extern "C" int lut3d_trilinear_f32(const float* in, const float* table,
       reinterpret_cast<uintptr_t>(table) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 ||
+      device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
   const bool vector = vector_planes(in, out, n, quantize);
-  quantize ? launch_path<true>(in, table, size, n, out, vector, stream)
-           : launch_path<false>(in, table, size, n, out, vector, stream);
+  quantize ? launch_path<true>(in, table, size, n, out, vector, device, stream)
+           : launch_path<false>(in, table, size, n, out, vector, device,
+                                stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -219,13 +219,13 @@ extern "C" int overlay_blend_u8(const uint8_t* src, uint8_t* out, int height,
   const long long plane = static_cast<long long>(height) * width;
   if (width % kRgbCols == 0 && aligned(src, kRgbCols) &&
       aligned(out, kRgbCols)) {
-    static int resident = 0;
+    static PerDevice resident = {};
     return static_cast<int>(
         launch_resident(overlay_blend_kernel<true>, resident,
                         plane / kRgbCols, kThreads, stream, src, out, height,
                         width, r));
   }
-  static int resident = 0;
+  static PerDevice resident = {};
   return static_cast<int>(launch_resident(overlay_blend_kernel<false>,
                                           resident, plane, kThreads, stream,
                                           src, out, height, width, r));
@@ -263,13 +263,13 @@ extern "C" int overlay_yuv420_u8(
   if (width % kYuvCols == 0 && aligned(y, kYuvCols) &&
       aligned(out_y, kYuvCols) && aligned(out_u, kYuvCols / 2) &&
       aligned(out_v, kYuvCols / 2)) {
-    static int resident = 0;
+    static PerDevice resident = {};
     return static_cast<int>(
         launch_resident(overlay_yuv420_kernel<kYuvCols, true>, resident,
                         pairs * groups, kThreads, stream, in, out, height,
                         width, r));
   }
-  static int resident = 0;
+  static PerDevice resident = {};
   return static_cast<int>(
       launch_resident(overlay_yuv420_kernel<kYuvCols, false>, resident,
                       pairs * groups, kThreads, stream, in, out, height,

@@ -219,17 +219,23 @@ resample_cols_kernel(const float* __restrict__ in, float* __restrict__ out,
 bool fits_int(long long v) { return v >= 0 && v <= INT32_MAX; }
 
 // The ring takes up to kStages * kLanes * kMaxPitch floats (64 KB), past
-// the 48 KB a launch gets without asking: asked once per kernel.
+// the 48 KB a launch gets without asking: asked once per kernel and card
+// (a function attribute belongs to one device).
 template <bool kVec16, bool kVecOut>
 cudaError_t launch_cols(dim3 grid, size_t smem, cudaStream_t stream,
                         const float* in, float* out, const int* k,
                         const float* w0, const float* w1, const int* stage,
                         int rows, int in_w, int out_w, int pitch) {
   const auto kernel = resample_cols_kernel<kVec16, kVecOut>;
-  static const cudaError_t raised = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * kStages * kLanes * kMaxPitch));
-  if (raised != cudaSuccess) return raised;
+  static PerDevice raised = {};  // 0: not asked yet, else 1 + its error
+  const int slot = device_slot();
+  if (slot < 0) return cudaErrorInvalidDevice;
+  if (raised[slot] == 0) {
+    raised[slot] = 1 + static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(float) * kStages * kLanes * kMaxPitch)));
+  }
+  if (raised[slot] != 1) return static_cast<cudaError_t>(raised[slot] - 1);
   kernel<<<grid, kColBlock, smem, stream>>>(in, out, k, w0, w1, stage, rows,
                                             in_w, out_w, pitch);
   return cudaGetLastError();

@@ -421,23 +421,48 @@ inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// A launcher's facts about a card (its resident blocks, a function
+// attribute it set) are kept per card: one process may launch on several
+// (dp/sp sharding), and occupancy and attributes belong to one device.
+constexpr int kMaxDevices = 64;
+using PerDevice = int[kMaxDevices];
+
+// The current card's index, or -1 past kMaxDevices.
+inline int device_slot() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return -1;
+  return device >= 0 && device < kMaxDevices ? device : -1;
+}
+
+// The blocks `kernel` holds resident on the current card with `threads` a
+// block (no dynamic shared memory), asked on its first launch there into
+// `cache`; 0, an empty grid the launch reports, for a card past
+// kMaxDevices.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, PerDevice& cache) {
+  const int slot = device_slot();
+  if (slot < 0) return 0;
+  if (cache[slot] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, slot);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    cache[slot] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return cache[slot];
+}
+
 // Launch a grid-stride kernel over `items` work items: enough blocks of
 // `threads` for one trip, at most the blocks the card holds resident at
-// once (asked on the first launch into the caller's `resident`, which each
-// kernel keeps).  -> the launch's error.
+// once (`resident_blocks`, into the caller's `resident`, which each kernel
+// keeps).  -> the launch's error.
 template <typename Kernel, typename... Args>
-cudaError_t launch_resident(Kernel kernel, int& resident, long long items,
-                            int threads, cudaStream_t stream, Args... args) {
-  if (resident == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
+cudaError_t launch_resident(Kernel kernel, PerDevice& resident,
+                            long long items, int threads, cudaStream_t stream,
+                            Args... args) {
+  const int blocks = resident_blocks(kernel, threads, resident);
   const long long needed = (items + threads - 1) / threads;
-  kernel<<<static_cast<int>(needed < resident ? needed : resident), threads,
-           0, stream>>>(args...);
+  kernel<<<static_cast<int>(needed < blocks ? needed : blocks), threads, 0,
+           stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -38,9 +38,10 @@ stage is a passthrough.
 
 Pad properties take schedules as ``control("sink_N::prop", ...)`` (the
 ``_ctl_*`` hooks); `navigation_event` hit-tests the pads for the
-pipeline's navigation routing.  Not ported (ROADMAP): tpuvf's
-split/cells/masked/sp render bodies and ``aggregate_split_ok`` (TPU
-layouts).
+pipeline's navigation routing.  Under sp row sharding each band renders its
+canvas rows from the whole pads (`make_aggregate`'s `band`), the pads'
+branches running replicated.  Not ported (ROADMAP): tpuvf's
+split/cells/masked render bodies and ``aggregate_split_ok`` (TPU layouts).
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from tpuvf_torch.kernels.composite import (
     composite_fold,
 )
 from tpuvf_torch.kernels.emit import emit
+from tpuvf_torch.kernels.overlay import band_rect
 from tpuvf_torch.kernels.sample import LINEAR
 
 BG_CHECKER, BG_BLACK, BG_WHITE, BG_TRANSPARENT = 0, 1, 2, 3
@@ -355,10 +357,20 @@ class Compositor(Element):
 
     # -- planning ----------------------------------------------------------
 
+    def sp_row_shardable(self, in_spec, out_spec):
+        """Any geometry (tpuvf: the canvas is banded; the pads enter
+        replicated, full rows on every band, per the pipeline's sp plan)."""
+        return True
+
     def make_aggregate(self, pad_specs: Dict[str, FrameSpec],
-                       out_spec: FrameSpec, device, fold_overlays=()):
+                       out_spec: FrameSpec, device, fold_overlays=(),
+                       band=None):
         """Plan the aggregate on `device` -> process(pad_inputs, state,
-        params) -> (output planes, state).
+        params) -> (output planes, state).  With `band` (a
+        ``parallel.bands.Band`` of the canvas) the process renders the
+        canvas rows [band.lo, band.hi) from the whole pads: each draw moved
+        up by the band's first row and clipped to the band (a draw that
+        misses it is not sampled), the checker on the frame's rows.
 
         `pad_inputs` maps each pad name to its canonical device planes;
         `params` holds this element's `traced_params` and, from the
@@ -380,9 +392,13 @@ class Compositor(Element):
                                   _plan_sampler(pad.spec, w, h, device),
                                   pad.spec.format not in RGB_FORMATS))
         out_format, matrix_out = out_spec.format, out_spec.matrix_index
+        row0, rows = (0, out_h) if band is None else (band.lo, band.rows)
         mixes = []  # (overlay name, (4, h, w) float32 rect planes, rect)
         for ov in fold_overlays:
-            (x0, x1, y0, y1), planes = ov.fold_rect(out_spec)
+            rect, planes = ov.fold_rect(out_spec)
+            if band is not None:
+                rect, planes = band_rect(rect, planes, band.lo, band.hi)
+            x0, x1, y0, y1 = rect
             if x1 > x0 and y1 > y0:
                 mixes.append((ov.name, torch.from_numpy(planes).to(device),
                               (x0, y0, x1, y1)))
@@ -435,15 +451,21 @@ class Compositor(Element):
                                            for q in prep[i + 1:]):
                     continue
                 d = p["d"]
+                x0, y0, x1, y1 = p["rect"]
+                y0, y1 = max(y0, row0) - row0, min(y1, row0 + rows) - row0
+                if y1 <= y0:
+                    continue  # the draw misses this band
                 draws.append(Draw(
-                    d.sample(pad_inputs[d.name]), p["x"], p["y"], p["rect"],
-                    int(params[f"pad.{d.name}.operator"]), p["alpha"]))
+                    d.sample(pad_inputs[d.name]), p["x"], p["y"] - row0,
+                    (x0, y0, x1, y1), int(params[f"pad.{d.name}.operator"]),
+                    p["alpha"]))
             # folded overlays: rgb = rgb * (1 - a) + ov * a, alpha kept
             for name, planes, rect in mixes:
                 draws.append(Draw(planes, rect[0], rect[1], rect, OP_OVER,
                                   float(params[f"fold.{name}.alpha"]),
                                   keep_alpha=True))
-            canvas = composite_fold(out_h, out_w, Background(colors, bg_drawn),
+            canvas = composite_fold(rows, out_w,
+                                    Background(colors, bg_drawn, row0),
                                     draws, device)
             return convert.pack_rgba(canvas, out_format, matrix_out), state
 

@@ -12,21 +12,24 @@
 Per frame: sample the input planes at the output grid through the 2-tap
 resample kernels K1/K1b (letterbox folded into the taps) -> the fused emit
 K2 (RGBA conversion, the letterbox border, quantization to the RGBA8
-intermediate) -> pack to the output format.  tpuvf's
-split/quad/grid link layouts only move bytes between elements and are not
-ported.
+intermediate) -> pack to the output format.  Under sp row sharding a band
+computes its output rows: at identity rows from its rows and a 4:2:0
+input's chroma halo, else from every input row through the tap table's
+band rows (``resample.band_taps``).  tpuvf's split/quad/grid link layouts
+only move bytes between elements and are not ported.
 """
 
 from __future__ import annotations
 
 from tpuvf_torch.core.element import Element
-from tpuvf_torch.core.formats import ALL_FORMATS
+from tpuvf_torch.core.formats import ALL_FORMATS, PLANAR_YUV_FORMATS
 from tpuvf_torch.core.properties import PropertyDescriptor, argb_to_rgba_floats
 from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import CapsFilter, Fraction, FrameSpec
 from tpuvf_torch.kernels import convert
 from tpuvf_torch.kernels.emit import emit
 from tpuvf_torch.kernels.sample import LINEAR, NEAREST, letterbox_scales
+from tpuvf_torch.parallel import bands
 
 METHOD_BILINEAR = 0
 METHOD_NEAREST = 1
@@ -106,23 +109,45 @@ class ConvertScale(Element):
             and in_spec.height == out_spec.height
         )
 
+    def _scales(self, in_spec, out_spec, cfg):
+        if not cfg["add-borders"]:
+            return 1.0, 1.0
+        return letterbox_scales(in_spec.width, in_spec.height,
+                                out_spec.width, out_spec.height)
+
+    def sp_row_shardable(self, in_spec, out_spec):
+        """Every geometry and format (tpuvf: identity rows are row-local,
+        a resampling over H gathers its input rows and computes its band's
+        output rows, the letterbox mask slices per band)."""
+        return True
+
+    def band_reach(self, in_spec, out_spec):
+        """A row axis that resamples reads every input row; at identity
+        rows a 4:2:0 input's LINEAR chroma row upsample reads one chroma
+        row past the band (two luma rows); otherwise nothing."""
+        _, scale_y = self._scales(in_spec, out_spec,
+                                  dict(self.static_config(in_spec, out_spec)))
+        if in_spec.height != out_spec.height or scale_y != 1.0:
+            return bands.ALL
+        return 2 if in_spec.format in PLANAR_YUV_FORMATS else 0
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
-                     device):
+                     device, band=None):
         cfg = dict(static)
         filt = NEAREST if cfg["method"] == METHOD_NEAREST else LINEAR
-        scale_x = scale_y = 1.0
+        scale_x, scale_y = self._scales(in_spec, out_spec, cfg)
         border = None
-        if cfg["add-borders"]:
-            scale_x, scale_y = letterbox_scales(
-                in_spec.width, in_spec.height, out_spec.width, out_spec.height
-            )
-            if scale_x != 1.0 or scale_y != 1.0:
-                border = argb_to_rgba_floats(cfg["border-color"])
+        if scale_x != 1.0 or scale_y != 1.0:
+            border = argb_to_rgba_floats(cfg["border-color"])
+        # a band computes its output rows from the input rows it is handed
+        rows = None if band is None else (band.lo, band.hi, band.in_lo,
+                                          band.in_hi)
         sampler = convert.plan_rgba_sampler(
             in_spec, out_spec.width, out_spec.height, device,
-            filter=filt, scale_x=scale_x, scale_y=scale_y)
-        border_plan = convert.plan_border(out_spec.width, out_spec.height,
-                                          scale_x, scale_y, border, device)
+            filter=filt, scale_x=scale_x, scale_y=scale_y, rows=rows)
+        border_plan = convert.plan_border(
+            out_spec.width, out_spec.height, scale_x, scale_y, border,
+            device, rows=None if band is None else (band.lo, band.hi))
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):

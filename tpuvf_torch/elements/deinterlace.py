@@ -19,8 +19,11 @@
 - no passthrough mode
 
 State: ``{}`` for bob/linear, which never read the previous frame;
-otherwise ``{"prev": (4, H, W) uint8 tensor, "has_prev": bool}``.  tpuvf's
-split/quad link bodies and sp/dp hooks are TPU layouts and are not ported.
+otherwise ``{"prev": (4, H, W) uint8 tensor, "has_prev": bool}``.  Under
+sp row sharding a band runs K5 on its rows plus one even pair of halo rows
+on each interior side (and the same rows of `prev`), and keeps its rows of
+the output and of the texture.  tpuvf's split/quad link bodies are TPU
+layouts and are not ported.
 """
 
 from __future__ import annotations
@@ -80,15 +83,39 @@ class Deinterlace(Element):
                                     dtype=torch.uint8, device=device),
                 "has_prev": False}
 
+    # -- dp/sp sharding (tpuvf/elements/deinterlace.py:117-138) -----------
+
+    def dp_shard_safe(self, in_spec, out_spec):
+        """bob and linear ignore the previous frame; weave and greedy-H
+        read it, so a stream split across dp shards would give each shard
+        its own history."""
+        return self._stateless()
+
+    def sp_row_shardable(self, in_spec, out_spec):
+        """RGB, or 4:2:0 of even width and height (tpuvf's canonical
+        rule): every method is a +-1-row stencil over the kept field,
+        whose parity is the frame's because a band starts on an even row;
+        `prev` is banded with the planes."""
+        return (in_spec.format in RGB_FORMATS
+                or convert.phase_capable(in_spec, out_spec))
+
+    def band_reach(self, in_spec, out_spec):
+        """The field stencil's row above and below, rounded to 2 (the
+        NEAREST chroma of a 4:2:0 texture needs no halo)."""
+        return 2
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
-                     device):
+                     device, band=None):
         cfg = dict(static)
         method, layout = cfg["method"], cfg["field-layout"]
         stateless = method in (METHOD_BOB, METHOD_LINEAR)
         static_tff = (bool(in_spec.tff) if layout == FIELD_AUTO
                       else layout == FIELD_TFF)
+        window = None if band is None else (band.in_lo, band.in_hi)
         taps = (None if in_spec.format in RGB_FORMATS
-                else convert.plan_chroma_taps(in_spec, device, NEAREST))
+                else convert.plan_chroma_taps(in_spec, device, NEAREST,
+                                              rows=window))
+        trim = (lambda planes: planes) if band is None else band.trim
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def resolve_tff(params) -> bool:
@@ -106,9 +133,11 @@ class Deinterlace(Element):
                 planes, prev, method, resolve_tff(params), has_prev,
                 params["motion-threshold"], taps, matrix_in, out_spec.format,
                 matrix_out)
+            out = trim(out)
             if stateless:
                 return out, state
             # blit input -> prevFrame (m:394-405)
-            return out, {"prev": tex, "has_prev": True}
+            return out, {"prev": trim({"prev": tex})["prev"],
+                         "has_prev": True}
 
         return process

@@ -23,8 +23,10 @@ vfcompositor with an RGB output the pipeline folds the
 overlay into the compositor's K4 launch as a final mix draw
 (`fold_into_aggregate_ok`, `fold_rect`; ``tpuvf/runtime/pipeline.py:
 541-606``) and this stage is a passthrough; after a YUV output it runs
-here, as tpuvf runs it.  tpuvf's split/quad/grid link bodies are TPU
-layouts and are not ported.
+here, as tpuvf runs it.  Under sp row sharding a band blends the frame's
+rect clipped to its rows (`overlay.band_rect`), with a 4:2:0 input's chroma
+halo.  tpuvf's split/quad/grid link bodies are TPU layouts and are not
+ported.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.io import png
 from tpuvf_torch.kernels import convert
-from tpuvf_torch.kernels.overlay import overlay_frame, overlay_rect
+from tpuvf_torch.kernels.overlay import band_rect, overlay_frame, overlay_rect
 
 _log = logging.getLogger("tpuvf_torch.overlay")
 
@@ -160,16 +162,38 @@ class Overlay(Element):
         return overlay_rect(self._image, spec.width, spec.height,
                             *self.placement(spec))
 
+    # -- sp sharding (tpuvf/elements/overlay.py:230-245) -------------------
+
+    def sp_row_shardable(self, in_spec, out_spec):
+        """An image loaded, the format kept, and RGB or 4:2:0 of even width
+        and height (tpuvf's canonical rule): the rect blend is row-local."""
+        self._sync_image()
+        if self._image is None or in_spec.format != out_spec.format:
+            return False
+        return (in_spec.format in RGB_FORMATS
+                or convert.phase_capable(in_spec, out_spec))
+
+    def band_reach(self, in_spec, out_spec):
+        """A 4:2:0 input's LINEAR chroma row upsample (2 rows); RGB is per
+        pixel."""
+        return 0 if in_spec.format in RGB_FORMATS else 2
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
-                     device):
+                     device, band=None):
         rect, planes_np = self.fold_rect(in_spec)
+        window = None
+        if band is not None:
+            # the frame's rect on the band's input rows
+            window = (band.in_lo, band.in_hi)
+            rect, planes_np = band_rect(rect, planes_np, *window)
         ov = torch.from_numpy(planes_np).to(device)
         taps = (None if in_spec.format in RGB_FORMATS
-                else convert.plan_chroma_taps(in_spec, device))
+                else convert.plan_chroma_taps(in_spec, device, rows=window))
+        trim = (lambda planes: planes) if band is None else band.trim
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):
-            return overlay_frame(planes, taps, rect, ov, params["alpha"],
-                                 matrix_in, matrix_out), state
+            return trim(overlay_frame(planes, taps, rect, ov, params["alpha"],
+                                      matrix_in, matrix_out)), state
 
         return process

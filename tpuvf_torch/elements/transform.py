@@ -23,7 +23,10 @@ is diagonal or anti-diagonal, so sampling stays separable.  Two paths:
   texcoords are opaque black (metaltransform_shaders.h:67-111), an outer
   product of a row and a column mask, which is K2's letterbox border.
 
-tpuvf's sp row-sharding hooks are TPU layouts and are not ported.
+Under sp row sharding a band is handed every input row: the fast path
+flips or transposes the frame and keeps its band's rows, the general path
+samples only its output rows (the row texcoords and the void mask sliced to
+the band).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.kernels import convert
 from tpuvf_torch.kernels.emit import Border, emit
+from tpuvf_torch.parallel import bands
 
 METHODS = (
     ("none", 0),
@@ -128,8 +132,14 @@ class Transform(Element):
         return self.props.get("method") == 0 and all(
             self.props.get(k) == 0 for k in _CROPS)
 
+    def sp_row_shardable(self, in_spec, out_spec):
+        """Every method (tpuvf: a flip or rotation gathers the frame's rows
+        and keeps its band's, the samplers compute their band's output
+        rows, the void mask slices per band)."""
+        return True
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
-                     device):
+                     device, band=None):
         cfg = dict(static)
         method = cfg["method"]
         w, h = in_spec.width, in_spec.height
@@ -137,6 +147,7 @@ class Transform(Element):
         rgb_in = in_spec.format in RGB_FORMATS
         no_crop = all(cfg[k] == 0 for k in _CROPS)
         fast = _fast_layout_op(method, w, h) if no_crop else None
+        # a band is handed every input row and keeps its output rows
         if fast is not None:
             sampler = None if rgb_in else convert.plan_rgba_sampler(
                 in_spec, w, h, device)
@@ -145,7 +156,10 @@ class Transform(Element):
                 # RGB at identity: the planes are their own RGBA8 emit
                 rgba_q = (planes["rgba"] if rgb_in
                           else emit(sampler(planes), matrix_in))
-                return convert.pack_rgba(fast(rgba_q), out_spec.format,
+                rgba_q = fast(rgba_q)
+                if band is not None:
+                    rgba_q = bands.shard_rows(rgba_q, band).contiguous()
+                return convert.pack_rgba(rgba_q, out_spec.format,
                                          matrix_out), state
 
             return process_fast
@@ -169,9 +183,13 @@ class Transform(Element):
         in_rows = (t_rows >= 0.0) & (t_rows <= 1.0)
         in_cols = (t_cols >= 0.0) & (t_cols <= 1.0)
         border = None
+        if band is not None:  # a band samples its output rows
+            in_rows = bands.shard_rows(in_rows, band, axis=0)
+            t_rows = bands.shard_rows(t_rows, band, axis=0)
         if not (in_rows.all() and in_cols.all()):
-            border = Border(torch.from_numpy(in_rows).to(device),
-                            torch.from_numpy(in_cols).to(device), _VOID)
+            border = Border(
+                torch.from_numpy(np.ascontiguousarray(in_rows)).to(device),
+                torch.from_numpy(in_cols).to(device), _VOID)
 
         def plane_sampler(pw, ph):
             return convert.plan_texcoord_sampler(pw, ph, t_rows, t_cols,

@@ -16,6 +16,9 @@
   with their RGBA8 quantization boundaries: sampler -> adjustments (K2) ->
   3D LUT (K3, quantizing) -> when |sharpness| > 0.001 the separable blur and
   unsharp mask (plain torch) -> output pack
+- under sp row sharding a band runs the chain on its rows plus the halo of
+  the chroma row upsample and the blur, with the vignette and grain rows of
+  the frame, and keeps its rows
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from tpuvf_torch.core.element import Element
-from tpuvf_torch.core.formats import CORE_FORMATS
+from tpuvf_torch.core.formats import (CORE_FORMATS, PLANAR_YUV_FORMATS,
+                                      RGB_FORMATS)
 from tpuvf_torch.core.properties import PropertyDescriptor
 from tpuvf_torch.core.registry import register
 from tpuvf_torch.core.spec import FrameSpec
@@ -35,6 +39,7 @@ from tpuvf_torch.kernels import convert, filter as kfilter
 from tpuvf_torch.kernels.color import dequant, quant
 from tpuvf_torch.kernels.emit import Adjust, emit
 from tpuvf_torch.kernels.lut import lut3d
+from tpuvf_torch.parallel import bands
 
 _log = logging.getLogger("tpuvf_torch.videofilter")
 
@@ -182,15 +187,44 @@ class VideoFilter(Element):
         return {"frame_index": torch.zeros((), dtype=torch.int64,
                                            device=device)}
 
+    # -- dp/sp sharding (tpuvf/elements/videofilter.py:218-239) -----------
+
+    def dp_shard_safe(self, in_spec, out_spec):
+        """The frame counter feeds only the grain hash: with noise off a
+        stream may batch-split across dp shards."""
+        return self.props.get("noise") <= 0.001
+
+    def sp_row_shardable(self, in_spec, out_spec):
+        """RGB, or 4:2:0 of even width and height (tpuvf's canonical rule,
+        ``convert.phase_capable``)."""
+        return (in_spec.format in RGB_FORMATS
+                or convert.phase_capable(in_spec, out_spec))
+
+    def band_reach(self, in_spec, out_spec):
+        """The 4:2:0 chroma row upsample (2 rows), then the 9-tap vertical
+        blur (4 rows) when sharpness is on; the adjust chain and the LUT
+        are per pixel, their coordinate fields the frame's rows."""
+        reach = 2 if in_spec.format in PLANAR_YUV_FORMATS else 0
+        if dict(self.static_config(in_spec, out_spec))["use_sharpness"]:
+            reach += 4
+        return reach
+
     def make_process(self, in_spec: FrameSpec, out_spec: FrameSpec, static,
-                     device):
+                     device, band=None):
         cfg = dict(static)
         use_sharpness = cfg["use_sharpness"]
         lut_size = cfg["lut_size"]
         gates = dict(cfg["gates"])
         w, h = in_spec.width, in_spec.height
-        sampler = convert.plan_rgba_sampler(in_spec, w, h, device)
-        coords = kfilter.plan_coords(w, h, device)
+        rows = y = None
+        if band is not None:
+            # the blur reads its halo rows, which the band then drops;
+            # without it the band's own rows are all the chain computes
+            y = bands.global_rows(band, window=use_sharpness)
+            rows = (int(y[0]), int(y[-1]) + 1, band.in_lo, band.in_hi)
+        coords = kfilter.plan_coords(w, h, device, rows=y)
+        sampler = convert.plan_rgba_sampler(in_spec, w, h, device, rows=rows)
+        trim = band.trim if band is not None and use_sharpness else None
         matrix_in, matrix_out = in_spec.matrix_index, out_spec.matrix_index
 
         def process(planes, state, params):
@@ -209,6 +243,8 @@ class VideoFilter(Element):
                 bv = quant(kfilter.blur9(dequant(bh), axis=-2))
                 rgba_q = quant(kfilter.unsharp_mask(
                     dequant(rgba_q), dequant(bv), params["sharpness"]))
+                if trim is not None:
+                    rgba_q = trim({"rgba": rgba_q})["rgba"]
             out = convert.pack_rgba(rgba_q, out_spec.format, matrix_out)
             # uint32 wrap, as tpuvf's uint32 counter
             return out, {"frame_index": (frame_index + 1) & 0xFFFFFFFF}

@@ -56,11 +56,14 @@ MAX_DRAWS = 8  # draws one launch holds (csrc/composite.cu kMaxDraws)
 
 class Background(NamedTuple):
     """The cleared render target: ``colors[cell]`` are (r, g, b, a) uint8
-    values, ``cell = ((x // 8) + (y // 8)) % 2`` (both cells equal for a
-    solid background); where `drawn` is False the canvas starts at 0."""
+    values, ``cell = ((x // 8) + ((y + row0) // 8)) % 2`` (both cells equal
+    for a solid background); where `drawn` is False the canvas starts at 0.
+    `row0` is the frame row of the canvas's row 0: a row band's canvas keeps
+    the frame's checker."""
 
     colors: tuple  # ((r, g, b, a), (r, g, b, a)) ints 0..255
     drawn: bool
+    row0: int = 0
 
 
 class Draw(NamedTuple):
@@ -95,7 +98,7 @@ def background_canvas(height: int, width: int, background: Background,
         return torch.zeros((4, height, width), dtype=torch.uint8,
                            device=device)
     colors = torch.tensor(background.colors, dtype=torch.uint8, device=device)
-    ys = torch.arange(height, device=device) // 8
+    ys = (torch.arange(height, device=device) + background.row0) // 8
     xs = torch.arange(width, device=device) // 8
     cell = (ys[:, None] + xs[None, :]) % 2
     return colors[cell].permute(2, 0, 1).contiguous()
@@ -147,7 +150,7 @@ class FoldParams(ctypes.Structure):
     _fields_ = [("draws", DrawDesc * MAX_DRAWS), ("n_draws", ctypes.c_int),
                 ("height", ctypes.c_int), ("width", ctypes.c_int),
                 ("bg_drawn", ctypes.c_int), ("from_canvas", ctypes.c_int),
-                ("bg", (ctypes.c_uint8 * 4) * 2)]
+                ("row0", ctypes.c_int), ("bg", (ctypes.c_uint8 * 4) * 2)]
 
 
 def _check_draw(d: Draw, height: int, width: int, device) -> None:
@@ -178,6 +181,7 @@ def _fold_params(height, width, background, chunk, from_canvas) -> FoldParams:
     p = FoldParams()
     p.n_draws, p.height, p.width = len(chunk), height, width
     p.bg_drawn, p.from_canvas = int(background.drawn), int(from_canvas)
+    p.row0 = background.row0
     for cell in range(2):
         for c in range(4):
             p.bg[cell][c] = background.colors[cell][c]

@@ -38,6 +38,7 @@ from tpuvf_torch.kernels import color, sample
 from tpuvf_torch.kernels.color import as_float, dequant, quant
 from tpuvf_torch.kernels.emit import Border
 from tpuvf_torch.kernels.resample import (
+    band_taps,
     make_col_taps,
     make_taps,
     resample_cols,
@@ -46,6 +47,7 @@ from tpuvf_torch.kernels.resample import (
     resample_rows_plain,
 )
 from tpuvf_torch.kernels.sample import LINEAR, NEAREST
+from tpuvf_torch.parallel.bands import plane_rows
 
 
 def plan_axis_taps(in_size: int, out_size: int, filter: str, scale: float,
@@ -62,14 +64,28 @@ def plan_axis_taps(in_size: int, out_size: int, filter: str, scale: float,
 
 
 def plan_plane_sampler(in_w, in_h, out_w, out_h, filter, scale_x, scale_y,
-                       device):
+                       device, rows=None):
     """uint8 (..., in_h, in_w) -> (..., out_h, out_w): dequantized and
     resampled (rows, then columns) to float32, or the uint8 planes as they
-    are when both axes are identity (the emit dequantizes them)."""
+    are when both axes are identity (the emit dequantizes them).
+
+    With `rows` (out_lo, out_hi, in_lo, in_hi), a row band's sampler: it is
+    handed the input rows [in_lo, in_hi) and returns the output rows
+    [out_lo, out_hi) (`resample.band_taps`; an identity row axis slices
+    them out of the window)."""
     taps_y = plan_axis_taps(in_h, out_h, filter, scale_y, device)
     taps_x = plan_axis_taps(in_w, out_w, filter, scale_x, device, cols=True)
+    crop = None
+    if rows is not None:
+        out_lo, out_hi, in_lo, in_hi = rows
+        if taps_y is not None:
+            taps_y = band_taps(taps_y, out_lo, out_hi, in_lo, in_hi - in_lo)
+        elif (out_lo, out_hi) != (in_lo, in_hi):
+            crop = (out_lo - in_lo, out_hi - in_lo)
 
     def run(img: torch.Tensor) -> torch.Tensor:
+        if crop is not None:
+            img = img[..., crop[0]:crop[1], :].contiguous()
         if taps_y is None and taps_x is None:
             return img
         img = dequant(img)
@@ -113,6 +129,7 @@ def plan_rgba_sampler(
     filter: str = LINEAR,
     scale_x: float = 1.0,
     scale_y: float = 1.0,
+    rows=None,
 ):
     """-> run(planes) returning the emit's source planes at the output grid
     (``emit.emit``): {"rgba": (4, out_h, out_w)}, or {"y", "u", "v"} with
@@ -120,24 +137,32 @@ def plan_rgba_sampler(
 
     RGB inputs resample the (4, H, W) stack in one launch per axis; 4:2:0
     inputs resample luma, then U and V stacked, one launch per axis each.
+    With `rows` (out_lo, out_hi, in_lo, in_hi), in frame rows, a row band's
+    sampler (`plan_plane_sampler`): each plane is handed its rows of the
+    input frame rows [in_lo, in_hi) and returns the output rows
+    [out_lo, out_hi).
     """
     fmt = in_spec.format
     if fmt in PACKED_YUV_FORMATS:
         filter = NEAREST  # packed inputs always decode with nearest
+
+    def plane(pw, ph):
+        band = None
+        if rows is not None:
+            band = (rows[0], rows[1]) + plane_rows(rows[2], rows[3], ph,
+                                                   in_spec.height)
+        return plan_plane_sampler(pw, ph, out_w, out_h, filter, scale_x,
+                                  scale_y, device, band)
+
     if fmt in RGB_FORMATS:
-        run_rgba = plan_plane_sampler(
-            in_spec.width, in_spec.height, out_w, out_h, filter,
-            scale_x, scale_y, device)
+        run_rgba = plane(in_spec.width, in_spec.height)
     else:
         if fmt in PLANAR_YUV_FORMATS:
             cw, ch = chroma_dims_420(in_spec.width, in_spec.height)
         else:
             cw, ch = chroma_dims_422(in_spec.width, in_spec.height)
-        run_y = plan_plane_sampler(
-            in_spec.width, in_spec.height, out_w, out_h, filter,
-            scale_x, scale_y, device)
-        run_c = plan_plane_sampler(
-            cw, ch, out_w, out_h, filter, scale_x, scale_y, device)
+        run_y = plane(in_spec.width, in_spec.height)
+        run_c = plane(cw, ch)
 
     def run(planes):
         if fmt in RGB_FORMATS:
@@ -149,17 +174,37 @@ def plan_rgba_sampler(
     return run
 
 
-def plan_chroma_taps(in_spec: FrameSpec, device, filter: str = LINEAR):
+def phase_capable(in_spec: FrameSpec, out_spec: FrameSpec) -> bool:
+    """tpuvf's ``_phase_capable`` of vfvideofilter, vfdeinterlace and
+    vfoverlay, which their row-sharding predicates read: the format kept,
+    and RGB of even width or 4:2:0 of even width and height
+    (``can_split_420`` at identity geometry, ``tpuvf/kernels/convert.py:
+    857-867``)."""
+    if out_spec.format != in_spec.format:
+        return False
+    if in_spec.format in RGB_FORMATS:
+        return in_spec.width % 2 == 0
+    return (in_spec.format in PLANAR_YUV_FORMATS
+            and in_spec.width % 2 == 0 and in_spec.height % 2 == 0)
+
+
+def plan_chroma_taps(in_spec: FrameSpec, device, filter: str = LINEAR,
+                     rows=None):
     """-> (rows, cols): the 2-tap tables that bring a 4:2:0 input's chroma
     planes to its own luma grid at scale 1, None for an identity axis: the
     tables `plan_rgba_sampler`'s K1 and K1b launches read (without K1b's band
     plan).  The fused routes of K5 and K6 sample each pixel's chroma through
-    them, rows first, then columns."""
+    them, rows first, then columns.  With `rows` (lo, hi), a row band's
+    window: the luma rows [lo, hi) from the chroma rows under them
+    (`resample.band_taps`)."""
     if in_spec.format not in PLANAR_YUV_FORMATS:
         raise ValueError(f"plan_chroma_taps: {in_spec.format} is not 4:2:0")
     cw, ch = chroma_dims_420(in_spec.width, in_spec.height)
-    return (plan_axis_taps(ch, in_spec.height, filter, 1.0, device),
-            plan_axis_taps(cw, in_spec.width, filter, 1.0, device))
+    taps_y = plan_axis_taps(ch, in_spec.height, filter, 1.0, device)
+    if rows is not None and taps_y is not None:
+        c_lo, c_hi = plane_rows(rows[0], rows[1], ch, in_spec.height)
+        taps_y = band_taps(taps_y, rows[0], rows[1], c_lo, c_hi - c_lo)
+    return taps_y, plan_axis_taps(cw, in_spec.width, filter, 1.0, device)
 
 
 def check_chroma_taps(taps, chroma, luma, device, name: str) -> None:
@@ -205,17 +250,20 @@ def sample_yuv420_plain(planes: dict, taps) -> dict:
 
 
 def plan_border(out_w: int, out_h: int, scale_x: float, scale_y: float,
-                color_rgba, device) -> Border | None:
+                color_rgba, device, rows=None) -> Border | None:
     """The letterbox border of an output grid (`color_rgba`: r, g, b, a
     floats), or None when there is no border or the quad covers the
-    grid."""
+    grid.  With `rows` (lo, hi), the frame's border on the output rows
+    [lo, hi) of a row band."""
     if color_rgba is None:
         return None
     mx = sample.coverage_mask(out_w, scale_x)
     my = sample.coverage_mask(out_h, scale_y)
     if mx.all() and my.all():
         return None
-    return Border(torch.from_numpy(my).to(device),
+    if rows is not None:
+        my = my[rows[0]:rows[1]]
+    return Border(torch.from_numpy(np.ascontiguousarray(my)).to(device),
                   torch.from_numpy(mx).to(device),
                   tuple(np.asarray(color_rgba, np.float32).tolist()))
 

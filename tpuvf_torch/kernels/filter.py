@@ -49,12 +49,14 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def plan_coords(width: int, height: int, device) -> dict:
+def plan_coords(width: int, height: int, device, rows=None) -> dict:
     """Pixel-position fields of a (height, width) frame, in float32 exactly
     as tpuvf computes them (vignette texcoords, grain pixel centers), plus
-    the 2*pi divisor of the hue rotation, on `device`."""
+    the 2*pi divisor of the hue rotation, on `device`.  `rows`: the float32
+    frame rows to compute the row fields at (a row band's,
+    ``parallel.bands.global_rows``), by default every row."""
     x = np.arange(width, dtype=np.float32)
-    y = np.arange(height, dtype=np.float32)
+    y = np.arange(height, dtype=np.float32) if rows is None else rows
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)

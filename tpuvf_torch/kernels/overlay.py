@@ -68,6 +68,19 @@ def overlay_rect(image: np.ndarray, width: int, height: int, ox: float,
             np.ascontiguousarray(ov_np[:, ry, rx]))
 
 
+def band_rect(rect, planes: np.ndarray, lo: int, hi: int):
+    """The frame's `overlay_rect` (rect, planes) on its rows [lo, hi): the
+    rect clipped to them and moved to a window starting at row `lo`, the
+    planes' rows inside it (tpuvf slices its padded rect planes per shard,
+    ``tpuvf/elements/overlay.py:601-604``)."""
+    x0, x1, y0, y1 = rect
+    a, b = max(y0, lo), min(y1, hi)
+    if b <= a or _empty(rect):
+        return (0, 0, 0, 0), np.zeros((4, 0, 0), np.float32)
+    return ((x0, x1, a - lo, b - lo),
+            np.ascontiguousarray(planes[:, a - y0:b - y0, :]))
+
+
 def _empty(rect) -> bool:
     x0, x1, y0, y1 = rect
     return x1 <= x0 or y1 <= y0

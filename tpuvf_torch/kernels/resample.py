@@ -80,6 +80,24 @@ def make_col_taps(table, in_size: int, device) -> Taps:
                          stage=_put(stage, np.int32, device), pitch=pitch)
 
 
+def band_taps(taps: Taps, lo: int, hi: int, base: int, n_in: int) -> Taps:
+    """Row taps for the output rows [lo, hi) of `taps` (`make_taps`'),
+    reading an input window of `n_in` rows that starts at input row
+    `base`: the table's rows [lo, hi), their indices less `base` and
+    clamped into the window.  An output row whose taps the window holds
+    gets the frame's sum bit for bit; a row whose taps it does not hold
+    (a band's halo rows past the element's reach) gets a clamped one, and
+    the band build drops it."""
+    if taps.k is not None:
+        raise ValueError("band_taps: row taps only")
+
+    def index(i):
+        return (i[lo:hi] - base).clamp(0, n_in - 1).to(torch.int32)
+
+    return Taps(index(taps.i0), index(taps.i1), taps.w0[lo:hi].contiguous(),
+                taps.w1[lo:hi].contiguous(), int(n_in))
+
+
 def col_paths(taps: Taps):
     """-> (tiles K1b stages in shared memory, tiles it gathers directly)."""
     staged = int((taps.stage[:, 1] > 0).sum())

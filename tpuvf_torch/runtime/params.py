@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpuvf_torch.parallel.mesh import leaves, map_leaves
+
 
 _LUT_SCALES = {np.dtype(np.uint8): np.float32(1.0 / 255.0),
                np.dtype(np.uint16): np.float32(1.0 / 65535.0)}
@@ -34,8 +36,16 @@ def _lut_table(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(scaled, np.float32))
 
 
-def from_tpuvf(params: dict, state, device):
+def from_tpuvf(params: dict, state, device, tiled: bool = False):
     """(tpuvf traced params, tpuvf state) -> (port params, port state).
+
+    With `tiled`, `state` is the element's entry of tpuvf's mesh state
+    (``Pipeline._mesh_state[1]``, ``tpuvf/parallel/mesh.py``
+    ``tile_state``): every leaf has a leading dp axis, and a plane-shaped
+    leaf holds the frame's rows (the bands' rows joined, as a global array
+    of a row-sharded run holds them).  The port state is then a list, one
+    whole-frame state per dp shard (``[]`` for an empty state), which
+    ``Pipeline.load_mesh_state`` cuts into the port's bands.
 
     - float scalars become 0-dim float32 tensors on `device`;
     - ``__buf/...`` buffers are dropped: the port plans its taps and masks
@@ -82,6 +92,16 @@ def from_tpuvf(params: dict, state, device):
                 f"port counterpart yet")
         out_params[key] = torch.tensor(float(np.float32(arr)),
                                        dtype=torch.float32, device=device)
+    if tiled:
+        flat = leaves(state)
+        dp = len(np.asarray(flat[0])) if flat else 0
+        return out_params, [
+            _state_from_tpuvf(map_leaves(state, lambda a, d=d: np.asarray(
+                a)[d]), device) for d in range(dp)]
+    return out_params, _state_from_tpuvf(state, device)
+
+
+def _state_from_tpuvf(state, device):
     if isinstance(state, dict):
         out_state = {}
         for key, value in state.items():
@@ -99,9 +119,8 @@ def from_tpuvf(params: dict, state, device):
                     f"port counterpart yet")
             out_state[key] = torch.tensor(int(arr) & 0xFFFFFFFF,
                                           dtype=torch.int64, device=device)
-    else:
-        out_state = state
-    return out_params, out_state
+        return out_state
+    return state
 
 
 def controllers_from_tpuvf(tpuvf_element, element) -> None:

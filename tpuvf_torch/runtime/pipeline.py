@@ -52,15 +52,22 @@
 - **Navigation**: a vfvideosink's pointer events route upstream through
   the compositors' hit tests to the source (`_wire_navigation`).
 
+- **dp/sp sharding** (``run_batched(mesh=..., sp_axis=...)``, tpuvf's
+  ``tpuvf/parallel/``): a batch's frames split over the mesh's dp shards,
+  each with its own carried state, and each frame's rows over its sp bands,
+  the stages run in lock-step over the bands (``parallel/``).  Branches that
+  feed a compositor's pads run replicated, full rows on every band
+  (`_sp_plan`).  Bitwise equal to the unsharded run.
+
 The device is explicit: ``Pipeline(device="cuda")`` raises when CUDA is not
 available; nothing falls back to the CPU.  On the CPU the same loop runs
-with ordinary host buffers and no events.  tpuvf's dp/sp sharding
-(``run_batched(mesh=...)``) and its split/quad/grid link layouts are not
-ported.
+with ordinary host buffers and no events.  tpuvf's split/quad/grid link
+layouts are not ported, nor its sp pad plan, which serves only them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass
@@ -71,6 +78,8 @@ import torch
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
 from tpuvf_torch.core.frame import HostLayout, from_host_layout
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
+from tpuvf_torch.parallel import bands as pbands
+from tpuvf_torch.parallel import mesh as pmesh
 from tpuvf_torch.runtime.device import get_device
 from tpuvf_torch.runtime.observability import (  # noqa: F401 - re-exported
     PipelineError,
@@ -104,6 +113,14 @@ class Stage:
 
 def _strip_meta(planes: Dict) -> Dict:
     return {k: v for k, v in planes.items() if k != META}
+
+
+def _on(device):
+    """The CUDA device context of `device` (a no-op for the CPU): kernels
+    and events of a band go to its card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _fans_out(element) -> bool:
@@ -152,6 +169,7 @@ class Pipeline:
         self._stager = ParamStager(self.device)
         self.navigation_events: List[Dict] = []
         self.stats = PipelineStats()
+        self._reset_mesh()
 
     # Pipeline.run's totals (tpuvf's stats), readable and resettable here
     @property
@@ -387,6 +405,13 @@ class Pipeline:
                 state[name] = old
         self.stages = stages
         self.state = state
+        self._folds = folds
+        # the sp plan (tpuvf computes it at build): aggregator-feeding
+        # branches run replicated under sp; per-shard state and band builds
+        # are this build's
+        self._sp_replicated, self._sp_rep_sources, self._sp_graph_ok = \
+            self._sp_plan()
+        self._reset_mesh()
         self._built_signature = self._static_signature()
         self._codec_chain = self._collect_codec_chain()
         for sink in self.sinks:
@@ -485,6 +510,86 @@ class Pipeline:
                 f"directly upstream of a sink (only passthrough elements "
                 f"in between)")
         return chains
+
+    # -- dp/sp sharding: the sp plan and its gate ---------------------------
+
+    def _sp_plan(self):
+        """tpuvf's ``_sp_plan`` (``tpuvf/runtime/pipeline.py:500-537``):
+        under sp row sharding the branches FEEDING aggregator pads run
+        replicated (every band computes the whole pad: a pad's draw offset
+        crosses band edges anywhere), while the aggregator and everything
+        downstream shard rows.  -> (replicated element names, replicated
+        source names, ok); ok is False when a node feeds both a replicated
+        branch and a sharded consumer."""
+        comps = [e for e in self.elements if _is_aggregator(e)]
+        if not comps:
+            return set(), set(), True
+        replicated: set = set()
+        stack = [ln.upstream for c in comps for ln in self._incoming(c)]
+        while stack:
+            n = stack.pop()
+            if n.name in replicated:
+                continue
+            replicated.add(n.name)
+            stack.extend(ln.upstream for ln in self._incoming(n))
+        ok = all(ln.downstream.name in replicated
+                 or _is_aggregator(ln.downstream)
+                 for e in self.elements if e.name in replicated
+                 for ln in self._outgoing(e))
+        rep_sources = {s.name for s in self.sources if s.name in replicated}
+        return replicated, rep_sources, ok
+
+    def _validate_sp(self, mesh, sp_axis: str) -> None:
+        """tpuvf's ``_validate_sp`` for builds with no phase links
+        (``tpuvf/runtime/pipeline.py:1638-1712``, granularity 1): the axis
+        is in the mesh, the graph can shard, every active stage outside the
+        replicated branches is `sp_row_shardable`, and every sharded plane
+        height splits into even rows per band, at least 4 (field parity,
+        chroma half-rows, the 4:2:0 row-pair pack).  tpuvf's pad plan for
+        misaligned phase links has nothing to align here."""
+        if sp_axis not in mesh.axis_names:
+            raise ValueError(
+                f"sp_axis {sp_axis!r} not in mesh axes {mesh.axis_names}")
+        sp = mesh.shape[sp_axis]
+        if sp <= 1:
+            return
+        if not self._sp_graph_ok:
+            raise ValueError(
+                "graph cannot row-shard: a branch feeds both an aggregator "
+                "pad (replicated under sp) and a sharded consumer; run "
+                "with dp only")
+        for st in self.stages:
+            if st.passthrough or st.element.name in self._sp_replicated:
+                continue  # replicated branches run unsharded
+            e = st.element
+            if not e.sp_row_shardable(st.in_spec, st.out_spec):
+                raise ValueError(
+                    f"element {e.name} ({e.ELEMENT_NAME}) does not support "
+                    f"spatial row sharding for its negotiated specs "
+                    f"{st.in_spec} -> {st.out_spec}; run with dp only")
+        for h in self._sp_heights():
+            rows = h // sp
+            if h % sp or rows % 2 or rows < 4:
+                raise ValueError(
+                    f"plane height {h} cannot split over sp={sp}: needs "
+                    f"h % sp == 0 with even rows/shard >= 4 (field parity, "
+                    f"chroma half-rows and the 4-row blur halo)")
+
+    def _sp_heights(self) -> List[int]:
+        """Heights of the planes that shard under sp: the active stages'
+        outside the replicated branches, and the non-replicated sources'
+        (tpuvf's ``_sp_heights``)."""
+        heights = []
+        for st in self.stages:
+            if st.passthrough or st.element.name in self._sp_replicated:
+                continue
+            if st.in_spec is not None:
+                heights.append(st.in_spec.height)
+            heights.append(st.out_spec.height)
+        for s in self.sources:
+            if s.name not in self._sp_rep_sources:
+                heights.append(self._source_spec(s).height)
+        return heights
 
     # -- execution ---------------------------------------------------------
 
@@ -728,7 +833,14 @@ class Pipeline:
         self._codec_chain = {}
         self._rings = {}
         self._stager = ParamStager(self.device)
+        self._reset_mesh()
         self._negotiated = False
+
+    def _reset_mesh(self) -> None:
+        """Drop the mesh runs' per-shard state, band builds and stagers."""
+        self._mesh_state = None  # (layout key, [shard][band] states)
+        self._band_builds: Dict[tuple, Dict] = {}
+        self._mesh_stagers: Dict[torch.device, ParamStager] = {}
 
     # -- frame loops --------------------------------------------------------
 
@@ -883,8 +995,8 @@ class Pipeline:
                     sp_axis: Optional[str] = None,
                     independent_streams: bool = False) -> int:
         """Throughput mode (tpuvf's ``run_batched``, ``tpuvf/runtime/
-        pipeline.py:1916-2198``, without a mesh): `batch_size` frames a
-        batch, their steps enqueued back to back with no host wait.
+        pipeline.py:1916-2198``): `batch_size` frames a batch, their steps
+        enqueued back to back with no host wait.
 
         On entry the controlled elements are synced to frame 0 and a
         property write since the last build rebuilds; the structure then
@@ -902,15 +1014,19 @@ class Pipeline:
         frame index, as tpuvf's one dispatch a batch does; a sink failure
         names its frame.
 
-        `mesh` and `sp_axis` (dp/sp sharding over several GPUs, tpuvf's
-        ``tpuvf/parallel/``) are a later slice of the port and raise;
-        `independent_streams`, tpuvf's assertion about dp shards, has no
-        effect without a mesh, as in tpuvf."""
-        if mesh is not None or sp_axis is not None:
-            raise NotImplementedError(
-                "run_batched(mesh=..., sp_axis=...): dp/sp sharding over "
-                "several GPUs (tpuvf/parallel/) is not ported yet; it is a "
-                "later slice of the port.  Run without a mesh")
+        With `mesh` (``parallel.mesh.make_mesh``, a 'dp' axis required),
+        each batch splits over the dp shards, shard d taking the frames
+        ``[d*b/dp, (d+1)*b/dp)`` (`batch_size` a multiple of dp), each shard
+        carrying its own state across batches and calls (`_mesh_state`,
+        resumed by the next call on a mesh of the same axes; a dp=1 run
+        publishes it to `state`).  A stateful element whose output depends
+        on its history refuses dp > 1 unless `independent_streams` says the
+        shards are independent streams.  With `sp_axis` naming a mesh axis
+        of size > 1, each frame's rows split into bands over it and the
+        stages run in lock-step over the bands (`_step_bands`), after
+        `_validate_sp`; the bands are joined before the sinks.  Bitwise
+        equal to the run without a mesh.  `sp_axis` without a mesh, and
+        `independent_streams` without one, have no effect, as in tpuvf."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if self._built_signature is None:
@@ -919,9 +1035,16 @@ class Pipeline:
         for el in controlled:
             el.sync_frame(0)
         self._maybe_rebuild()
+        lay = None
+        if mesh is not None:
+            lay = self._mesh_layout(mesh, sp_axis, batch_size,
+                                    independent_streams)
         out_fps, infos = self._clock()
         num_frames = self._clock_num_frames(out_fps, infos, num_frames)
         structure = self._ctl_structure()
+        if lay is not None:
+            return self._run_mesh(lay, num_frames, batch_size, out_fps,
+                                  infos, structure)
         state = self.state
         pending: List[tuple] = []
         done = batch = 0
@@ -964,11 +1087,323 @@ class Pipeline:
             batch += 1
         return self._end_run(done, t_run, pending)
 
-    def _upload_batch(self, selections) -> Dict[tuple, Dict]:
+    # -- the mesh path (dp/sp) ------------------------------------------------
+
+    def _mesh_layout(self, mesh, sp_axis, batch_size: int,
+                     independent_streams: bool) -> pmesh.Layout:
+        """tpuvf's checks of a mesh run, in its order
+        (``tpuvf/runtime/pipeline.py:1965-1994``), -> the runner's layout."""
+        if "dp" not in mesh.shape:
+            raise ValueError(
+                f"mesh {dict(mesh.shape)} has no 'dp' axis — build it "
+                f"with {{'dp': 1, ...}} for sp-only sharding")
+        dp = mesh.shape["dp"]
+        if batch_size % dp != 0:
+            raise ValueError(f"batch_size {batch_size} must divide by dp={dp}")
+        if dp > 1 and not independent_streams:
+            # each dp shard carries its own history: splitting ONE stream
+            # across shards would rewrite it for a stateful element
+            unsafe = [st.element.name for st in self.stages
+                      if not st.passthrough and st.in_spec is not None
+                      and not st.element.dp_shard_safe(st.in_spec,
+                                                       st.out_spec)]
+            if unsafe:
+                raise ValueError(
+                    f"element(s) {unsafe} carry cross-frame state whose "
+                    f"output changes when ONE stream is batch-split across "
+                    f"dp={dp} shards (each shard sees its own history).  "
+                    f"Pass independent_streams=True if the dp shards map to "
+                    f"independent streams, or run with dp=1")
+        if sp_axis is not None:
+            self._validate_sp(mesh, sp_axis)
+        return pmesh.layout(mesh, sp_axis)
+
+    def _shard_plan(self, devices: tuple) -> Dict:
+        """The band builds of one dp shard whose bands lie on `devices`
+        (cached per build): {"devices", "process": {element: [process per
+        band]}, "bands": {element: [Band] or None}}.  A replicated branch's
+        element (and every element without sp) runs its frame's process on
+        each band's device; a sharded one its band build
+        (`Element.make_process(..., band=)`, `Compositor.make_aggregate(
+        ..., band=)`) over `bands.plan_bands`' windows."""
+        plan = self._band_builds.get(devices)
+        if plan is not None:
+            return plan
+        sp = len(devices)
+        plan = {"devices": devices, "process": {}, "bands": {}}
+        for st in self.stages:
+            if st.passthrough:
+                continue
+            e = st.element
+            banded = sp > 1 and e.name not in self._sp_replicated
+            if st.in_spec is None:
+                pad_specs = {ln.sink_pad: ln.spec for ln in sorted(
+                    self._incoming(e), key=lambda ln: ln.sink_pad)}
+                folds = tuple(self._folds.get(e.name, ()))
+                out_rows = st.out_spec.height
+                band_list = (pbands.plan_bands(out_rows, out_rows, sp, 0)
+                             if banded else None)
+
+                def make(dev, band, e=e, pad_specs=pad_specs, folds=folds,
+                         st=st):
+                    return e.make_aggregate(pad_specs, st.out_spec, dev,
+                                            fold_overlays=folds, band=band)
+            else:
+                band_list = (pbands.plan_bands(
+                    st.out_spec.height, st.in_spec.height, sp,
+                    e.band_reach(st.in_spec, st.out_spec))
+                    if banded else None)
+
+                def make(dev, band, e=e, st=st):
+                    return e.make_process(
+                        st.in_spec, st.out_spec,
+                        e.static_config(st.in_spec, st.out_spec), dev,
+                        band=band)
+            if band_list is None:
+                # the frame's process, one build a device
+                built = {self.device: st.process}
+                for dev in devices:
+                    if dev not in built:
+                        built[dev] = make(dev, None)
+                procs = [built[dev] for dev in devices]
+            else:
+                procs = [make(dev, b) for dev, b in zip(devices, band_list)]
+            plan["process"][e.name] = procs
+            plan["bands"][e.name] = band_list
+        self._band_builds[devices] = plan
+        return plan
+
+    def _source_bands(self, name: str, planes: Dict, meta, devices) -> list:
+        """A source's uploaded frame -> its planes per band: the band's
+        rows (`bands.split_rows`), or the whole frame on every band's
+        device for a replicated source (one feeding a compositor pad)."""
+        if len(devices) == 1:
+            per_band = [planes]
+        elif name in self._sp_rep_sources:
+            per_band = [{k: v.to(dev) for k, v in planes.items()}
+                        for dev in devices]
+        else:
+            split = {k: pbands.split_rows(v, devices)
+                     for k, v in planes.items()}
+            per_band = [{k: split[k][s] for k in planes}
+                        for s in range(len(devices))]
+        return [dict(p, **{META: meta}) for p in per_band]
+
+    def _step_bands(self, plan: Dict, inputs: Dict[str, list], states: list,
+                    params: list, frame_index: int):
+        """`step_sources` over one dp shard's bands, stage by stage: every
+        band finishes a stage before any band starts the next.  `inputs`
+        holds each source's planes per band (`_source_bands`), `states` and
+        `params` one dict a band.  A banded stage is handed its input
+        window (`Band.in_lo`..`in_hi` of every plane and of every
+        plane-shaped state leaf, gathered from the bands that hold those
+        rows); a replicated stage (or any stage without sp) its band's
+        whole planes, and bands on one device share its one run.  -> (the
+        tail's planes per band, or {sink name: planes per band}; new states
+        per band)."""
+        devices = plan["devices"]
+        produced: Dict[int, list] = {}
+
+        def value_of(elem) -> list:
+            if isinstance(elem, SourceElement):
+                return inputs[elem.name]
+            return produced[id(elem)]
+
+        new = [dict(st) for st in states]
+        for st in self.stages:
+            e = st.element
+            ins = self._incoming(e)
+            if st.passthrough:
+                produced[id(e)] = value_of(ins[0].upstream)
+                continue
+            band_list = plan["bands"][e.name]
+            outs: list = []
+            try:
+                for s, dev in enumerate(devices):
+                    if band_list is None and dev in devices[:s]:
+                        # same device, same whole planes: one run serves
+                        t = devices.index(dev)
+                        outs.append(outs[t])
+                        new[s][e.name] = new[t][e.name]
+                        continue
+                    with _on(dev):
+                        out, new[s][e.name] = self._band_stage(
+                            st, [value_of(ln.upstream) for ln in ins], s,
+                            plan, states, params[s])
+                    outs.append(out)
+            except Exception as exc:
+                raise PipelineError(e.name, frame_index, exc) from exc
+            produced[id(e)] = outs
+
+        def joined(per_band: list) -> Dict:
+            if len(per_band) == 1:
+                return _strip_meta(per_band[0])
+            return {k: pbands.all_rows([b[k] for b in per_band], devices[0])
+                    for k in per_band[0] if k != META}
+
+        sinks = self.sinks
+        if len(sinks) > 1:
+            return {sk.name: joined(value_of(self._incoming(sk)[0].upstream))
+                    for sk in sinks}, new
+        if sinks:
+            tail = value_of(self._incoming(sinks[0])[0].upstream)
+        elif self.stages:
+            tail = value_of(self.stages[-1].element)
+        else:
+            tail = inputs[self.sources[0].name]
+        return joined(tail), new
+
+    def _band_stage(self, st: Stage, upstream: list, s: int, plan: Dict,
+                    states: list, params: Dict):
+        """Stage `st` on band `s` of a shard (`_step_bands`): `upstream`
+        holds each input link's planes per band -> (output planes, state)."""
+        e = st.element
+        dev = plan["devices"][s]
+        process = plan["process"][e.name][s]
+        band_list = plan["bands"][e.name]
+        if st.in_spec is None:  # aggregator: every pad whole
+            pad_inputs, pad_meta = {}, {}
+            for ln, per_band in zip(self._incoming(e), upstream):
+                pad_meta[ln.sink_pad] = per_band[s].get(META)
+                pad_inputs[ln.sink_pad] = _strip_meta(per_band[s])
+            prm = dict(params.get(e.name, {}))
+            prm["__pad_meta__"] = pad_meta
+            return process(pad_inputs, states[s].get(e.name, ()), prm)
+        src = upstream[0]
+        meta = src[s].get(META)
+        if band_list is None:
+            planes = _strip_meta(src[s])
+            state = states[s].get(e.name, ())
+        else:
+            band = band_list[s]
+            planes = {}
+            for k in src[0]:
+                if k == META:
+                    continue
+                pieces = [b[k] for b in src]
+                lo, hi = pbands.plane_rows(
+                    band.in_lo, band.in_hi,
+                    pieces[0].shape[-2] * len(pieces), band.in_height)
+                planes[k] = pbands.window(pieces, lo, hi, dev)
+            state = pmesh.state_window([b.get(e.name, ()) for b in states],
+                                       band, dev)
+        prm = params.get(e.name, {})
+        if meta is not None:
+            prm = dict(prm, **{META: meta})
+        out, state = process(planes, state, prm)
+        if meta is not None:
+            out = dict(out, **{META: meta})  # flags travel
+        return out, state
+
+    def load_mesh_state(self, mesh, sp_axis: Optional[str],
+                        shard_states: List[Dict]) -> None:
+        """Resume the next ``run_batched(mesh=mesh, sp_axis=sp_axis)`` from
+        one whole-frame state per dp shard (``runtime.params.from_tpuvf``
+        of tpuvf's tiled ``_mesh_state`` with ``tiled=True``): each shard's
+        state is cut into its bands as a run would carry it."""
+        if self._built_signature is None:
+            self.build()
+        lay = pmesh.layout(mesh, sp_axis)
+        if len(shard_states) != lay.dp:
+            raise ValueError(f"{len(shard_states)} shard states for "
+                             f"dp={lay.dp}")
+        replicated = self._sp_replicated if lay.sp > 1 else frozenset()
+        tiles = [pmesh.tile_state(st, lay, replicated)[d]
+                 for d, st in enumerate(shard_states)]
+        self._mesh_state = (lay.key, tiles)
+
+    def _run_mesh(self, lay: pmesh.Layout, num_frames: int, batch_size: int,
+                  out_fps, infos, structure) -> int:
+        """`run_batched`'s loop on a mesh layout (see its docstring): per
+        batch, every frame's params re-read after its controllers' sync and
+        staged on each mesh device (one (n, k) copy a device; the rows
+        split over dp, each shard's bands reading its frames' rows), each
+        shard's distinct buffers uploaded to its first device, then the
+        shards' frames (`parallel.mesh.run_shards`) through `_step_bands`
+        and their readbacks from the shard's first device."""
+        replicated = self._sp_replicated if lay.sp > 1 else frozenset()
+        plans = [self._shard_plan(devs) for devs in lay.devices]
+        held = self._mesh_state
+        if held is not None and held[0] == lay.key:
+            states = held[1]
+        else:
+            states = pmesh.tile_state(self.state, lay, replicated)
+        devices = list(dict.fromkeys(d for devs in lay.devices for d in devs))
+        for dev in devices:
+            self._mesh_stagers.setdefault(dev, ParamStager(dev))
+        per = batch_size // lay.dp
+        pending: List[tuple] = []
+        done = batch = 0
+        clock = time.perf_counter
+        t_run = clock()
+        while done < num_frames:
+            n = min(batch_size, num_frames - done)
+            t0 = clock()
+            readbacks: Dict[int, tuple] = {}
+            t_step = [0.0, 0.0]
+            try:
+                rows = []
+                for j in range(n):
+                    self._ctl_sync(done + j, structure)
+                    rows.append({dev: read_params(self._active(), dev)
+                                 for dev in devices})
+                params = {}
+                for dev in devices:
+                    with _on(dev):  # the stager's event on its card
+                        params[dev] = self._mesh_stagers[dev].stage_rows(
+                            [r[dev] for r in rows])
+                t1 = clock()
+                selections = [self._select_buffers(done + j, out_fps, infos)
+                              for j in range(n)]
+                planes = [self._upload_batch(
+                    selections[d * per:min(n, (d + 1) * per)], devs[0])
+                    for d, devs in enumerate(lay.devices)]
+                t2 = clock()
+
+                def step(d, j):
+                    devs = lay.devices[d]
+                    ts = clock()
+                    inputs = {name: self._source_bands(
+                        name, planes[d][name, k], meta, devs)
+                        for name, (k, meta) in selections[j].items()}
+                    with trace(f"tpuvf_torch.step[{done + j}]"):
+                        out, states[d] = self._step_bands(
+                            plans[d], inputs, states[d],
+                            [params[dev][j] for dev in devs], done)
+                    tr = clock()
+                    with _on(devs[0]):
+                        readbacks[j] = self._enqueue_readback(
+                            out, done + j, (batch % 2) * batch_size + j)
+                    t_step[0] += tr - ts
+                    t_step[1] += clock() - tr
+
+                pmesh.run_shards(lay, batch_size, n, step)
+            except Exception:
+                self._flush_pending(pending)
+                raise
+            pending = self._hand_over(
+                pending, [readbacks[j] for j in sorted(readbacks)], t2 - t1,
+                (t1 - t0) + t_step[0], t_step[1])
+            done += n
+            batch += 1
+        self._mesh_state = (lay.key, states)
+        if lay.dp == 1:
+            # one shard's state is the stream's: run() and a run without a
+            # mesh go on from it
+            self.state = pmesh.untile_state(states[0], self.device,
+                                            replicated)
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return self._end_run(done, t_run, pending)
+
+    def _upload_batch(self, selections, device=None) -> Dict[tuple, Dict]:
         """{(source name, buffer index): device planes} for the distinct
         buffers a batch's `_select_buffers` picked: per source, one host
         copy into one buffer and one non-blocking copy
-        (`HostLayout.upload_many`)."""
+        (`HostLayout.upload_many`) to `device` (the pipeline's by
+        default)."""
+        device = self.device if device is None else device
         wanted: Dict[str, List[int]] = {}
         for sel in selections:
             for name, (j, _) in sel.items():
@@ -981,7 +1416,7 @@ class Pipeline:
             spec = self._source_spec(src)
             hosts = [src.generate(j, spec) for j in idx]
             for j, pieces in zip(idx, HostLayout(spec).upload_many(
-                    hosts, self.device)):
+                    hosts, device)):
                 out[name, j] = from_host_layout(pieces, spec)
         return out
 
