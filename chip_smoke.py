@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --host-steps   # only the chains' host-side times
     python3 chip_smoke.py --mesh         # only the card, the build and (m)
+    python3 chip_smoke.py --compiled     # only the card, the build, K4, (n)
 
 Phases (each prints its own lines; any failure exits 1 with no result line):
 
@@ -38,16 +39,18 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    paths (its exported query, held to the mirror `lut.table_path`); each
    input also cropped to 1919x1079, whose pixel count takes the path of 1
    pixel a thread;
-   K4 (composite_fold, vfcompositor's blend fold) against
-   composite_fold_plain, bitwise: BASELINE config 5's shape (a 4K canvas,
+   K4 (composite_fold, vfcompositor's blend fold, reading its draws from
+   a device table) against composite_fold_plain on the same table,
+   bitwise: BASELINE config 5's shape (a 4K canvas,
    four u8/f32 draws, OVER, OVER at alpha 0.7, ADD), the same with the
    folded overlay as a fifth (mix) draw, the same shape placed off the
    4-pixel grid on a 3838-wide canvas (every draw and the canvas on the
    scalar path), a checker background with negative positions and SOURCE,
    more draws than one launch holds, and an sp band's canvas (its checker
-   from frame row 1084, `Background.row0`); each line names each draw's path
-   (the launcher's rule, held to the Python mirror); its device time is
-   also read from torch.profiler;
+   from frame row 1084, `Background.row0`, the table's rows the frame's);
+   each line names each draw's path (the launcher's rule, held to the
+   Python mirror); its device time is also read from torch.profiler and
+   printed beside the config-5 time before the table;
    K5 (deinterlace_frame: deinterlace_yuv420_u8 and deinterlace_u8,
    vfdeinterlace's whole body in one launch) against
    deinterlace_frame_plain, bitwise on the output planes and the texture
@@ -146,6 +149,24 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    shard's frames as their own stream, and without the flag the
    ValueError naming the deinterlacer; run_batched's fps with and without
    the mesh in turns, a reading; and the phase's time;
+(n) the compiled step (``runtime/compiled.py``: each frame's step over
+   fixed buffers, captured once per key as a CUDA graph and replayed):
+   chains (a)-(k) under Pipeline.run, and (l)'s paths under their loops
+   ((b)'s brightness ramp and (f)'s sink_0::xpos ramp under run() and
+   run_batched, each at one capture over 16 frames; (g) under two
+   run_batched calls; run_live on (a); (f) into the navigation chain's
+   vfvideosink), each against the same run with every step eager
+   (`step_sources` and the sinks' payloads over the same buffers), byte
+   for byte on every sink's frames (a live run: the frames both
+   delivered); per path the keys, captures, replays and eager frames, the
+   captures' wall time and compile_seconds; per chain (a)-(h'') the host
+   step of the compiled body eager and with the graph (timed as phase 4
+   times the step: params re-read and staged, then the body: the split,
+   the stages, the sinks' payloads, the state write-back) and the device
+   span of each (CUDA events); then a capture broken by a
+   stage's host read, which must raise PipelineError naming that stage at
+   the capturing frame; each path's counters set to 0 just before it and
+   read just after;
 5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
    b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
@@ -163,8 +184,8 @@ function) and the main paths' launches; the last line is {"ok": true,
 full float32), though the port runs no matmul.
 
 With --host-steps it runs only the card and build phases and the host side
-of chains (a)-(h'') (`host_steps`: the step, Pipeline.run's fps and its
-host edge), and prints no result line: to compare two checkouts, run it
+of chains (a)-(h'') (`host_steps`: `step_sources`, and the compiled body
+eager and with the graph, Pipeline.run's fps and its host edge), and prints no result line: to compare two checkouts, run it
 from the root of each in turns within one call.
 """
 
@@ -801,7 +822,7 @@ def grid_sample_yardstick(x, cube):
     return fn, fn()[0, :, 0]
 
 
-def profiled(fn, reps: int, attempts: int = 3):
+def profiled(fn, reps: int, attempts: int = 5):
     """torch.profiler's key averages over `reps` calls of fn(); a window in
     which the profiler recorded no device time is taken again."""
     import torch
@@ -836,7 +857,9 @@ def profiled_us(fn, reps: int = 20) -> float:
 
 
 def composite_cases(gen, tmp):
-    """(label, height, width, Background, [Draw]) for K4, on the card."""
+    """(label, height, width, Background, [Draw]) for K4, on the card; the
+    draws placed in the canvas's rows (`pack_draws` moves a band's by its
+    row0 into the table's frame rows)."""
     import numpy as np
     import torch
 
@@ -844,6 +867,7 @@ def composite_cases(gen, tmp):
     from tpuvf_torch.kernels.composite import (OP_ADD, OP_OVER, OP_SOURCE,
                                                Background, Draw,
                                                background_colors)
+
     from tpuvf_torch.kernels.overlay import overlay_rect
 
     def draw(h, w, pw, ph, x, y, op, alpha, f32):
@@ -876,9 +900,9 @@ def composite_cases(gen, tmp):
                                             256.0, 256.0)
     mix = Draw(torch.from_numpy(planes).cuda(), x0, y0, (x0, y0, x1, y1),
                OP_OVER, 1.0, keep_alpha=True)
-    black = Background(background_colors(((0, 0, 0, 1),) * 2), True)
+    black = Background(background_colors(((0, 0, 0, 1),) * 2))
     checker = Background(background_colors(((0.5, 0.5, 0.5, 1),
-                                            (0.75, 0.75, 0.75, 1))), True)
+                                            (0.75, 0.75, 0.75, 1))))
     base = config5(0, 0, 3840)
     return [
         ("config 5 shape: 4K canvas, 4K u8 + 1080p f32 OVER, 720p u8 OVER "
@@ -924,16 +948,25 @@ def draw_paths(draws) -> str:
     return "/".join(paths)
 
 
+# K4's config-5 device time before its draw table (PERF.md section 6, on
+# the kernels of commit b4df81c, NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside the table route's (a reading: a card's time moves with its power
+# limit)
+K4_BEFORE_TABLE_US = 66.6
+
+
 def phase_composite(summary, tmp):
-    """K4 against composite_fold_plain; the JSON times are the config-5
-    shape's (chain (e)'s pads)."""
+    """K4 against composite_fold_plain, both reading the same draw table
+    (`pack_draws`, on the card); the JSON times are the config-5 shape's
+    (chain (e)'s pads)."""
     import torch
 
     from tpuvf_torch.kernels import composite
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     for i, (label, h, w, bg, draws) in enumerate(composite_cases(gen, tmp)):
-        args = (h, w, bg, draws, "cuda")
+        sources, table = composite.pack_draws(h, w, draws, True, bg.row0)
+        args = (h, w, bg, sources, table.cuda(), "cuda")
         got = composite.composite_fold(*args)
         want = composite.composite_fold_plain(*args)
         torch.cuda.synchronize()
@@ -951,13 +984,20 @@ def phase_composite(summary, tmp):
                               h * w * len(draws),
                               case=None if i == 0 else label)
         if i == 0:
+            dev_us = summary["K4"]["device_us"]
             plain_dev_us = profiled_us(
                 lambda: composite.composite_fold_plain(*args))
-            device += f" | plain device {plain_dev_us:.1f} us"
+            slower = dev_us - K4_BEFORE_TABLE_US
+            device += (f" | plain device {plain_dev_us:.1f} us | table "
+                       f"route: {dev_us:.1f} us against "
+                       f"{K4_BEFORE_TABLE_US} us before the table (b4df81c; "
+                       f"{'at most' if slower <= 3.0 else 'MORE than'} 3 "
+                       f"us slower)")
         canvas = "vector" if w % 4 == 0 else "scalar"
-        print(f"[3 K4] {label}: torch.equal OK | canvas {canvas}, draws "
-              f"{draw_paths(draws)} | kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us{device}", flush=True)
+        print(f"[3 K4] {label}: torch.equal OK (table route) | canvas "
+              f"{canvas}, draws {draw_paths(draws)} | kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us{device}",
+              flush=True)
         record(summary, "K4", err, ms if i == 0 else None, plain_ms)
 
 
@@ -1009,9 +1049,10 @@ def launched_path(fn, label):
     kVec>, overlay_blend_kernel<kVec>: 16 or 1 columns)."""
     import re
 
-    # a window of 3 calls: a one-call window has come back empty three
-    # times in a row on the card (the profiler's flake, not the kernel's)
-    names = {e.key for e in profiled(fn, 3) if KERNEL_NAMES[label] in e.key}
+    # a window of 20 calls: windows of one call, and once of 3, have come
+    # back empty three times in a row on the card (the profiler's flake,
+    # not the kernel's)
+    names = {e.key for e in profiled(fn, 20) if KERNEL_NAMES[label] in e.key}
     if len(names) != 1:
         fail(f"{label}: expected one kernel, torch.profiler saw {names}")
     name = names.pop()
@@ -2263,6 +2304,327 @@ def phase_mesh(tmp, card):
     return total
 
 
+# -- phase (n): the compiled step ------------------------------------------
+
+
+def record_sinks(pipe) -> dict:
+    """{sink name: [(frame index, bytes)]}: what each sink is handed (its
+    payload after its host codecs), in the order the runs deliver it."""
+    import numpy as np
+
+    got = {}
+    for sink in pipe.sinks:
+        frames = got[sink.name] = []
+        deliver = sink.deliver
+
+        def keep(payload, spec, index, frames=frames, deliver=deliver):
+            if isinstance(payload, (bytes, bytearray)):
+                data = bytes(payload)
+            elif isinstance(payload, dict):
+                data = b"".join(np.ascontiguousarray(v).tobytes()
+                                for v in payload.values())
+            else:
+                data = np.ascontiguousarray(payload).tobytes()
+            frames.append((index, data))
+            deliver(payload, spec, index)
+
+        sink.deliver = keep
+    return got
+
+
+def eager_steps(pipe) -> None:
+    """Every frame of `pipe`'s runs steps eagerly from now on: the compiled
+    step's body (`step_sources` and the sinks' payloads over its fixed
+    buffers), never a graph.  Phase (n)'s reference."""
+    cs = pipe.compiled
+
+    def step(reads, metas, state, index):
+        cs.eager += 1
+        return cs._body(reads, metas, cs._load_state(state), index)
+
+    cs.step = step
+
+
+def graph_step_us(pipe) -> tuple:
+    """The host step (us, `host_us`: params re-read and staged each step,
+    the inputs on the card, as phase 4 times the step) eager and with the
+    graph, over the same body (the split, the stages, the sinks' payloads
+    and the state write-back): its eager run, and the replay of frame 0's
+    key; then the device span of each (CUDA events, us)."""
+    from tpuvf_torch.runtime.staging import read_params
+
+    cs = pipe.compiled
+    out_fps, infos = pipe._clock()
+    metas = {name: meta for name, (_, meta) in
+             pipe._select_buffers(0, out_fps, infos).items()}
+
+    def eager():
+        reads = read_params(pipe._active(), pipe.device)
+        cs.stage(reads, metas)
+        return cs._body(reads, metas, cs._load_state(pipe.state), 0)
+
+    def graph():
+        reads = read_params(pipe._active(), pipe.device)
+        cs.stage(reads, metas)
+        return cs.step(reads, metas, pipe.state, 0)
+
+    return (host_us(eager), host_us(graph), cuda_ms(eager) * 1e3,
+            cuda_ms(graph) * 1e3)
+
+
+def compiled_path(label, make, drive, frames, expect=(), captures=None,
+                  live=False):
+    """One path of phase (n): `make()` -> a fresh pipeline on the card,
+    `drive(pipe)` -> the frames it ran.  The graph run (the launch counters
+    set to 0 just before it and read just after, `counted_run`) against
+    the same run with every step eager (`eager_steps`), byte-equal for
+    every sink and frame (a live run: on the frames both delivered); the
+    compiled step's keys, captures and replays, `captures` captures where
+    given; -> (launches, the graph run's pipeline, a text)."""
+    graph = make()
+    got = record_sinks(graph)
+    before = graph.stats.compile_seconds
+    launches = counted_run(label, graph, frames, expect,
+                           lambda: drive(graph))
+    cs = graph.compiled
+    capture_s = graph.stats.compile_seconds - before
+    eager = make()
+    want = record_sinks(eager)
+    eager_steps(eager)
+    drive(eager)
+    compared = 0
+    for sink, frames_want in want.items():
+        frames_got = got[sink]
+        if live:
+            common = set(dict(frames_got)) & set(dict(frames_want))
+            if len(common) < frames // 2:
+                fail(f"{label}: {len(common)} frames delivered by both runs")
+            frames_got = [f for f in frames_got if f[0] in common]
+            frames_want = [f for f in frames_want if f[0] in common]
+        if len(frames_got) != len(frames_want) or not frames_want:
+            fail(f"{label}: {sink} got {len(frames_got)} frames, the eager "
+                 f"run {len(frames_want)}")
+        for (i, a), (j, b) in zip(frames_got, frames_want):
+            if i != j or a != b:
+                fail(f"{label}: {sink} frame {i} of the graph run differs "
+                     f"from the eager run's")
+        compared += len(frames_want)
+    if cs.captures == 0 or cs.replays == 0:
+        fail(f"{label}: {cs.captures} captures, {cs.replays} replays")
+    if captures is not None and cs.captures != captures:
+        fail(f"{label}: {cs.captures} captures, expected {captures} "
+             f"(keys {cs.keys})")
+    text = (f"graph = eager byte-equal on {compared} sink frames | keys "
+            f"{cs.keys}, captures {cs.captures}, replays {cs.replays}, "
+            f"eager {cs.eager} | captures took {capture_s * 1e3:.1f} ms "
+            f"(compile_seconds {graph.stats.compile_seconds:.3f} s with the "
+            f"build)")
+    return launches, graph, text
+
+
+def capture_failure():
+    """A capture that an element's op breaks (a host read of a device
+    value, legal eagerly) raises PipelineError naming that element at the
+    capturing frame; nothing runs the step eagerly in its place."""
+    from tpuvf_torch.runtime.observability import PipelineError
+
+    desc = ("appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale "
+            f"! video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! "
+            f"appsink")
+    pipe = fed_pipeline(desc, {"appsrc0": nv12_frames(3, 1920, 1080, 7)},
+                        "cuda")
+    st = next(st for st in pipe.stages
+              if st.element.ELEMENT_NAME == "vfvideofilter")
+    real = st.process
+
+    def process(planes, state, params):
+        out, state = real(planes, state, params)
+        int(out["rgba"][0, 0, 0])  # waits for the card: no capture can
+        return out, state
+
+    st.process = process
+    try:
+        pipe.run()
+    except PipelineError as exc:
+        if exc.element != st.element.name or exc.frame_index != 1:
+            fail(f"(n) capture failure: named {exc.element!r} at frame "
+                 f"{exc.frame_index}, not {st.element.name!r} at 1")
+        if pipe.compiled.eager != 1 or len(pipe["appsink0"].frames) != 1:
+            fail("(n) capture failure: a frame ran past the failed capture")
+        print(f"[n capture failure] a host read in {st.element.name}'s "
+              f"stage: PipelineError names {exc.element!r} at frame "
+              f"{exc.frame_index} ({type(exc.cause).__name__})", flush=True)
+        return
+    fail("(n) capture failure: a host read in a stage did not fail the "
+         "capture")
+
+
+def dead_graphs_before_capture():
+    """A dead pipeline's graphs (its pipeline and compiled step hold each
+    other, so only the cyclic collector frees them) are freed before the
+    next capture, not inside it, where destroying a graph invalidates the
+    capture: the second pipeline's compositor stage runs the collector
+    while its step is being captured, and the run must pass."""
+    import gc
+
+    def make():
+        return fed_pipeline(CHAIN_F, {
+            "s0": nv12_frames(3, 1920, 1080, seed=70),
+            "s1": rgba_frames(3, 1280, 720, seed=71)}, "cuda")
+
+    dead = make()
+    dead.run()
+    if dead.compiled.captures != 1:
+        fail(f"(n) dead graphs: {dead.compiled.captures} captures, not 1")
+    del dead
+    pipe = make()
+    stage = next(st for st in pipe.stages if st.element is pipe["c"])
+    real = stage.process
+    freed = []
+
+    class Process:
+        """The compositor's process, running the collector at the
+        capture (its second call)."""
+
+        calls = 0
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def __call__(self, *args):
+            Process.calls += 1
+            if Process.calls == 2:
+                freed.append(gc.collect())
+            return real(*args)
+
+    stage.process = Process()
+    pipe.run()
+    if pipe.compiled.captures != 1 or not freed:
+        fail(f"(n) dead graphs: {pipe.compiled.captures} captures, the "
+             f"collector ran {len(freed)} times in the capture")
+    print(f"[n dead graphs] a dropped pipeline's graphs freed before the "
+          f"next capture: its run captures 1 graph with the collector run "
+          f"inside the capture ({freed[0]} objects freed there)", flush=True)
+
+
+def phase_compiled(tmp, card):
+    """Phase (n): every main path under Pipeline.run (and phase (l)'s
+    paths under their loops) through the compiled step, each against the
+    same run stepped eagerly, byte-equal; the host step eager and with the
+    graph; -> {kernel: launches summed over the paths}."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for label, desc, feeds, expect, _, *tffs in main_paths(tmp):
+        launches, pipe, text = compiled_path(
+            label, lambda: fed_pipeline(desc, feeds, "cuda", *tffs),
+            lambda p: p.run(), FRAMES, expect)
+        add(launches)
+        eager_us, graph_us, eager_dev, graph_dev = graph_step_us(pipe)
+        print(f"[n compiled] {label[:4].strip()}: {text} | host step eager "
+              f"{eager_us:.1f} us, graph {graph_us:.1f} us | device span "
+              f"(events) eager {eager_dev:.1f} us, graph {graph_dev:.1f} "
+              f"us", flush=True)
+    # (i)-(k): the tee with the window, the file edge, packed 4:2:2
+    src_j = Path(tmp) / "n-in.y4m"
+    write_y4m(src_j, i420_moving_block(FRAMES, 1920, 1080, seed=46), 1920,
+              1080)
+    src_k = Path(tmp) / "n-in.uyvy"
+    np.random.default_rng(423).integers(
+        0, 256, (FRAMES, 2160, 7680), dtype=np.uint8).tofile(src_k)
+    outs = iter(range(1000))
+
+    def out_dir():
+        out = Path(tmp) / f"n-out{next(outs)}"
+        out.mkdir()
+        return out
+
+    files = [
+        ("(i)", lambda: fed_pipeline(CHAIN_I, {"appsrc0": nv12_frames(
+            FRAMES, 3840, 2160, seed=39)}, "cuda"), ("K1", "K1b", "K2")),
+        ("(j)", lambda: fed_pipeline(CHAIN_J.format(src=src_j, out=out_dir()),
+                                     {}, "cuda"), (f"K5={FRAMES}",)),
+        ("(k) -> BGRA", lambda: fed_pipeline(CHAIN_K.format(
+            src=src_k, caps="format=BGRA", out=out_dir() / "k.raw"), {},
+            "cuda"), ("K1b", "K2")),
+        ("(k) -> YUY2", lambda: fed_pipeline(CHAIN_K.format(
+            src=src_k, caps="format=YUY2,width=1920,height=1080",
+            out=out_dir() / "k.raw"), {}, "cuda"), ("K1", "K1b", "K2")),
+    ]
+    for label, make, expect in files:
+        launches, _, text = compiled_path(label, make, lambda p: p.run(),
+                                          FRAMES, expect)
+        add(launches)
+        print(f"[n compiled] {label}: {text}", flush=True)
+    # (l)'s paths: the ramps (one capture over 16 frames), the batched and
+    # live loops, the window of the navigation chain
+    ramp = [float(v) for v in np.linspace(0.02, 0.3, LFRAMES)]
+    feeds_b = {"appsrc0": nv12_frames(LFRAMES, 3840, 2160, seed=3842)}
+
+    def ramp_b():
+        pipe = fed_pipeline(CHAIN_B, feeds_b, "cuda")
+        pipe["vfmetalvideofilter0"].control("brightness", ramp)
+        return pipe
+
+    xramp = [-100 + 8 * k for k in range(LFRAMES)]
+    feeds_f = {"s0": nv12_frames(LFRAMES, 1920, 1080, seed=66),
+               "s1": rgba_frames(LFRAMES, 1280, 720, seed=67)}
+
+    def ramp_f():
+        pipe = fed_pipeline(CHAIN_F, feeds_f, "cuda")
+        pipe["c"].control("sink_0::xpos", xramp)
+        return pipe
+
+    feeds_g = {"appsrc0": i420_moving_block(8, 1920, 1080, seed=47)}
+    live = ("appsrc format=NV12 width=1920 height=1080 ! "
+            "video/x-raw,framerate=30/1 ! vfmetalconvertscale ! "
+            f"video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! appsink")
+    feeds_a = {"appsrc0": nv12_frames(LFRAMES, 1920, 1080, seed=31)}
+    feeds_nav = {"s0": nv12_frames(4, 1920, 1080, seed=68),
+                 "s1": rgba_frames(4, 1280, 720, seed=69)}
+    paths = [
+        ("(l) (b) 4K brightness ramp, run()", ramp_b, lambda p: p.run(),
+         LFRAMES, ("K1", "K1b", "K2"), 1, False),
+        ("(l) (b) 4K brightness ramp, run_batched", ramp_b,
+         lambda p: p.run_batched(LFRAMES, batch_size=8), LFRAMES,
+         ("K1", "K1b", "K2"), 1, False),
+        ("(l) (f) sink_0::xpos ramp, run()", ramp_f, lambda p: p.run(),
+         LFRAMES, ("K1", "K1b", "K2", "K4"), 1, False),
+        ("(l) (f) sink_0::xpos ramp, run_batched", ramp_f,
+         lambda p: p.run_batched(LFRAMES, batch_size=8), LFRAMES,
+         ("K1", "K1b", "K2", "K4"), 1, False),
+        ("(l) (g) greedy-H, run_batched(8) twice",
+         lambda: fed_pipeline(CONFIG4, feeds_g, "cuda"),
+         lambda p: p.run_batched(8) + p.run_batched(8), LFRAMES,
+         (f"K5={LFRAMES}",), None, False),
+        ("(l) run_live (a) 30 fps", lambda: fed_pipeline(live, feeds_a,
+                                                         "cuda"),
+         lambda p: p.run_live(LFRAMES) + p.stats.frames_dropped, LFRAMES,
+         ("K1", "K1b", "K2"), None, True),
+        ("(l) (f) -> vfvideosink (the navigation chain)",
+         lambda: fed_pipeline(CHAIN_F.replace("! appsink",
+                                              "! vfmetalvideosink", 1),
+                              feeds_nav, "cuda"),
+         lambda p: p.run(), 4, ("K1", "K1b", "K2", "K4"), None, False),
+    ]
+    for label, make, drive, frames, expect, captures, is_live in paths:
+        launches, _, text = compiled_path(label, make, drive, frames,
+                                          expect, captures, is_live)
+        add(launches)
+        print(f"[n compiled] {label}: {text}", flush=True)
+    capture_failure()
+    dead_graphs_before_capture()
+    print(f"[n time] phase (n) took {time.perf_counter() - t0:.1f} s | "
+          f"{card}", flush=True)
+    return total
+
+
 def phase_oracle(tmp):
     """Small chains on the card against tests/oracle (numpy Metal
     semantics; tolerance 2 LSB as in the repo's golden tests)."""
@@ -2499,9 +2861,13 @@ def host_steps() -> int:
                 return pipe.step_sources(inputs, state, pipe.params())
 
             fps, edge = run_fps(pipe)
-            print(f"[host] {label}: step {host_us(step):.1f} us (host clock, "
-                  f"median of 5 x 20) | Pipeline.run {fps:.2f} fps | "
-                  f"{edge_text(edge)}", flush=True)
+            eager_us, graph_us, _, _ = graph_step_us(pipe)
+            print(f"[host] {label}: step {host_us(step):.1f} us "
+                  f"(step_sources); the compiled body eager "
+                  f"{eager_us:.1f} us, with the graph {graph_us:.1f} us "
+                  f"(host clock, median of 5 x 20) | "
+                  f"Pipeline.run {fps:.2f} fps | {edge_text(edge)}",
+                  flush=True)
             if label.startswith("(a)"):
                 first = step
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -2541,8 +2907,16 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_mesh(tmp, card)
         return 0
+    if argv == ["--compiled"]:
+        card = phase_card()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_composite({}, tmp)
+            phase_compiled(tmp, card)
+        return 0
     if argv:
-        fail(f"unknown arguments {argv} (none, --host-steps or --mesh)")
+        fail(f"unknown arguments {argv} (none, --host-steps, --mesh or "
+             f"--compiled)")
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
@@ -2560,6 +2934,8 @@ def main(argv) -> int:
         for k, v in phase_controllers(card).items():
             launches[k] += v
         for k, v in phase_mesh(tmp, card).items():
+            launches[k] += v
+        for k, v in phase_compiled(tmp, card).items():
             launches[k] += v
         phase_oracle(tmp)
     kernels = []

@@ -1,6 +1,7 @@
-"""K4, the compositor's blend fold, on the CPU: `composite_fold_plain`
-against a straight transcription of tpuvf's fold, the wrapper's checks and
-descriptor packing, and the CUDA source's layout and operator codes.
+"""K4, the compositor's blend fold, on the CPU: `composite_fold_plain` on
+the draw table (`pack_draws`) against a straight transcription of tpuvf's
+fold, the wrapper's checks and descriptor packing, and the CUDA source's
+layout and operator codes.
 
 The transcription is tpuvf's own code path (``compositor.py``
 make_aggregate's background :383-397, make_dst :644-655, the fragment
@@ -36,6 +37,7 @@ from tpuvf_torch.kernels.composite import (
     background_colors,
     composite_fold,
     composite_fold_plain,
+    pack_draws,
 )
 
 torch.set_num_threads(1)
@@ -156,8 +158,9 @@ CASES = [
 def test_plain_fold_matches_tpuvf_fold(label, h, w, mode, bg_drawn, specs):
     rng = np.random.default_rng(len(label))
     draws = [make_draw(rng, h, w, *s) for s in specs]
-    bg = Background(background_colors(BG_FLOATS[mode]), bg_drawn)
-    got = composite_fold_plain(h, w, bg, draws, "cpu")
+    bg = Background(background_colors(BG_FLOATS[mode]))
+    sources, table = pack_draws(h, w, draws, bg_drawn)
+    got = composite_fold_plain(h, w, bg, sources, table, "cpu")
     assert got.dtype == torch.uint8 and tuple(got.shape) == (4, h, w)
     want = tpuvf_fold(h, w, mode, bg_drawn, draws, jit=False)
     assert np.array_equal(got.numpy(), want), label
@@ -167,14 +170,14 @@ def test_plain_fold_matches_tpuvf_fold(label, h, w, mode, bg_drawn, specs):
           f"{(d > 0).mean():.4%} differ")
     assert d.max() <= 1 and (d > 0).mean() < 0.001  # FMA (module doc)
     before = composite_fold.launches
-    assert torch.equal(composite_fold(h, w, bg, draws, "cpu"), got)
+    assert torch.equal(composite_fold(h, w, bg, sources, table, "cpu"), got)
     assert composite_fold.launches == before  # the CPU path launches nothing
 
 
 def test_background_colors_are_tpuvfs_quantized_canvas():
     for mode, floats in BG_FLOATS.items():
-        bg = Background(background_colors(floats), True)
-        got = kc.background_canvas(19, 27, bg, "cpu")
+        bg = Background(background_colors(floats))
+        got = kc.background_canvas(19, 27, bg, True, "cpu")
         assert np.array_equal(got.numpy(), tpuvf_background(mode, 19, 27))
     assert background_colors(BG_FLOATS["checker"]) == (
         (128, 128, 128, 255), (191, 191, 191, 255))  # 127.5 rounds to even
@@ -191,7 +194,7 @@ def test_quant_of_dequant_is_identity_for_every_u8():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     rng = np.random.default_rng(3)
-    bg = Background(background_colors(BG_FLOATS["black"]), True)
+    bg = Background(background_colors(BG_FLOATS["black"]))
     good = make_draw(rng, 16, 16, 8, 8, 2, 2, OP_OVER, 0.5)
     for bad, exc in [
         (good._replace(rect=(0, 0, 17, 8)), ValueError),  # leaves the canvas
@@ -202,34 +205,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         (good._replace(src=good.src.double()), TypeError),
     ]:
         with pytest.raises(exc):
-            composite_fold(16, 16, bg, [bad], "cpu")
+            composite_fold(16, 16, bg, *pack_draws(16, 16, [bad]), "cpu")
+    sources, table = pack_draws(16, 16, [good])
+    for bad_table in (table[1:], table.long(), table[None]):
+        with pytest.raises(ValueError):
+            composite_fold(16, 16, bg, sources, bad_table, "cpu")
     with pytest.raises(ValueError):
-        composite_fold(16, 16, bg, [good], "meta")
+        composite_fold(16, 16, bg, sources, table, "meta")
 
 
 def test_fold_params_pack_the_descriptors():
     rng = np.random.default_rng(4)
-    bg = Background(background_colors(BG_FLOATS["checker"]), False)
+    bg = Background(background_colors(BG_FLOATS["checker"]), row0=6)
     draws = [make_draw(rng, 20, 30, 9, 7, -3, 5, OP_ADD, 0.7, f32=True),
              make_draw(rng, 20, 30, 30, 20, 0, 0, OP_SOURCE, 1.0)]
-    p = kc._fold_params(20, 30, bg, draws, from_canvas=True)
-    assert (p.n_draws, p.height, p.width, p.bg_drawn, p.from_canvas) == (
-        2, 20, 30, 0, 1)
+    draws[1] = draws[1]._replace(keep_alpha=True)
+    sources, table = pack_draws(20, 30, draws, False, row0=6)
+    p = kc._fold_params(20, 30, bg, sources, 0, table, from_canvas=True)
+    assert (p.first, p.n_draws, p.height, p.width, p.from_canvas,
+            p.row0) == (0, 2, 20, 30, 1, 6)
+    assert p.table == table.data_ptr()
     assert [list(row) for row in p.bg] == [[128] * 3 + [255],
                                            [191] * 3 + [255]]
     d0 = p.draws[0]
     assert d0.src == draws[0].src.data_ptr() and d0.src_f32 == 1
-    assert (d0.width, d0.height, d0.x, d0.y) == (9, 7, -3, 5)
-    assert (d0.x0, d0.y0, d0.x1, d0.y1) == draws[0].rect == (0, 5, 6, 12)
-    assert (d0.op, d0.draw) == (OP_ADD, 1)
-    assert d0.k == np.float32(0.7)  # the float32 value, unchanged
-    assert p.draws[1].src_f32 == 0 and p.draws[1].op == OP_SOURCE
+    assert (d0.width, d0.height, d0.keep_alpha) == (9, 7, 0)
+    assert p.draws[1].src_f32 == 0 and p.draws[1].keep_alpha == 1
+    # the table: bg_drawn, then each draw's frame geometry (row0 added),
+    # op, k's float32 bits and its flag
+    t = table.tolist()
+    assert t[0] == 0
+    assert t[1:1 + kc.TABLE_FIELDS - 2] == [-3, 11, 0, 11, 6, 18, OP_ADD]
+    assert np.int32(t[8]).view(np.float32) == np.float32(0.7)
+    assert t[9] == 1 and t[10 + kc.TABLE_FIELDS - 1] == 1
+    bg_drawn, placed = kc.placed_draws(20, 30, bg, sources, table)
+    assert not bg_drawn
+    assert [(d.x, d.y, d.rect) for d in placed] == [
+        (d.x, d.y, d.rect) for d in draws]
 
 
 # -- the CUDA source -----------------------------------------------------------
 
 COMPOSITE_CU = (_build.SOURCE_DIR / "composite.cu").read_text()
-C_TYPES = {"const void*": "c_void_p", "int": "c_int", "float": "c_float"}
+C_TYPES = {"const void*": "c_void_p", "const int*": "c_void_p",
+           "int": "c_int", "float": "c_float"}
 
 
 def _struct_fields(name):
@@ -239,7 +258,8 @@ def _struct_fields(name):
     fields = []
     for line in body.splitlines():
         line = line.split("//")[0].strip()
-        m = re.match(r"(const void\*|int|float|uint8_t|DrawDesc) (\w+)"
+        m = re.match(r"(const void\*|const int\*|int|float|uint8_t|DrawDesc) "
+                     r"(\w+)"
                      r"((?:\[\w+\])*);", line)
         if m:
             fields.append((m.group(2), m.group(1) + m.group(3)))
@@ -253,11 +273,17 @@ def test_source_descriptor_layout_matches_the_ctypes_tables():
     assert [n for n, _ in fold] == [n for n, _ in kc.FoldParams._fields_]
     assert dict(fold)["draws"] == "DrawDesc[kMaxDraws]"
     assert dict(fold)["bg"] == "uint8_t[2][4]"
-    assert all(t == "int" for n, t in fold if n not in ("draws", "bg"))
+    assert dict(fold)["table"] == "const int*"
+    assert all(t == "int" for n, t in fold
+               if n not in ("draws", "bg", "table"))
     assert kc.FoldParams.draws.size == kc.MAX_DRAWS * kc.ctypes.sizeof(
         kc.DrawDesc)
-    max_draws = re.search(r"constexpr int kMaxDraws = (\d+);", COMPOSITE_CU)
-    assert int(max_draws.group(1)) == MAX_DRAWS
+    for name, value in (("kMaxDraws", MAX_DRAWS),
+                        ("kTableHead", kc.TABLE_HEAD),
+                        ("kTableFields", kc.TABLE_FIELDS)):
+        found = re.search(r"constexpr int " + name + r" = (\d+);",
+                          COMPOSITE_CU)
+        assert int(found.group(1)) == value
 
 
 def test_source_operator_codes_match_the_wrapper():

@@ -38,6 +38,7 @@ from tpuvf_torch.kernels.composite import (
     background_colors,
     composite_fold_plain,
     draw_vector_path,
+    pack_draws,
 )
 from tpuvf_torch.kernels.overlay import overlay_rect
 
@@ -82,8 +83,9 @@ def test_mix_draws_match_tpuvf_apply_folds(mode, places):
             draws.append(Draw(torch.from_numpy(planes), x0, y0,
                               (x0, y0, x1, y1), OP_OVER,
                               float(np.float32(alpha)), keep_alpha=True))
-    bg = Background(background_colors(BG_FLOATS[mode]), True)
-    got = composite_fold_plain(h, w, bg, draws, "cpu").numpy()
+    bg = Background(background_colors(BG_FLOATS[mode]))
+    got = composite_fold_plain(h, w, bg, *pack_draws(h, w, draws),
+                               "cpu").numpy()
     before = tpuvf_fold(h, w, mode, True, pads, jit=False)
     want = tpuvf_apply_folds(before, mixes)
     assert np.array_equal(got, want)  # bitwise (module doc)

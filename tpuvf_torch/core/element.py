@@ -317,6 +317,12 @@ class SinkElement(Element):
         layout = HostLayout(spec)
         return layout, host_layout(planes, spec)
 
+    def payload_key(self):
+        """What `device_payload`'s plan depends on beyond the spec, hashable
+        (None: nothing).  A compiled step drops its graphs when it changes
+        (``runtime/compiled.py``)."""
+        return None
+
     def deliver(self, payload, spec: FrameSpec, frame_index: int) -> None:
         """Hand over one frame's read-back payload (after its host codecs)
         in Pipeline.run.  Default: `consume`."""

@@ -246,21 +246,34 @@ class HostLayout:
         flat = torch.empty((len(host_frames), self.nbytes), dtype=torch.uint8,
                            pin_memory=device.type == "cuda")
         for row, host_frame in zip(flat, host_frames):
-            parts = [host_frame] if self.keys == [None] else [
-                host_frame[k] for k in self.keys]
-            for view, arr, shape in zip(self._views(row), parts, self.shapes):
-                arr = np.ascontiguousarray(arr, dtype=np.uint8)
-                bare_ok = self.keys != [None] or arr.shape == tuple(shape)
-                if arr.size != view.numel() or not bare_ok:
-                    raise ValueError(
-                        f"{self.spec.format} host frame: expected {shape}, "
-                        f"got {arr.shape}")
-                if not arr.flags.writeable:  # torch wraps writable arrays only
-                    arr = arr.copy()
-                # torch's copy runs on several threads
-                view.copy_(torch.from_numpy(arr).view(view.shape))
+            self._fill(row, host_frame)
         return [self._views(row)
                 for row in flat.to(device, non_blocking=True)]
+
+    def upload_into(self, host_frame, flat: torch.Tensor) -> torch.Tensor:
+        """One host frame -> `flat`, a device buffer of `nbytes` (a
+        compiled step's fixed input): one host copy into a fresh buffer
+        (pinned on a GPU), one non-blocking copy; -> `flat`."""
+        host = torch.empty(self.nbytes, dtype=torch.uint8,
+                           pin_memory=flat.device.type == "cuda")
+        self._fill(host, host_frame)
+        return flat.copy_(host, non_blocking=True)
+
+    def _fill(self, row: torch.Tensor, host_frame) -> None:
+        """Copy one host frame's arrays into the flat host buffer `row`."""
+        parts = [host_frame] if self.keys == [None] else [
+            host_frame[k] for k in self.keys]
+        for view, arr, shape in zip(self._views(row), parts, self.shapes):
+            arr = np.ascontiguousarray(arr, dtype=np.uint8)
+            bare_ok = self.keys != [None] or arr.shape == tuple(shape)
+            if arr.size != view.numel() or not bare_ok:
+                raise ValueError(
+                    f"{self.spec.format} host frame: expected {shape}, "
+                    f"got {arr.shape}")
+            if not arr.flags.writeable:  # torch wraps writable arrays only
+                arr = arr.copy()
+            # torch's copy runs on several threads
+            view.copy_(torch.from_numpy(arr).view(view.shape))
 
 
 def to_device(planes: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -19,15 +19,21 @@
   premultiply rgb; SOURCE=(one,zero), OVER=(one,one-minus-src-alpha),
   ADD=(one,one); checker background is 8x8-px 0.75/0.5 gray
 
-Per frame, `make_aggregate`'s process runs the reference's CPU prepare pass
-on the host in Python scalars (the pad geometry, alpha and operator arrive
-from `traced_params` as host numbers, so no frame waits for the device),
-samples each drawn pad at its pad size (RGB pads through the K1/K1b
-sampler, uint8 at identity; YUV pads through K1/K1b and the emit K2 to
-float32 RGBA), folds every draw over the background in one launch of K4
-(``kernels/composite.py``) and packs the RGBA8 canvas to the output format.
-A draw whose flag is 0 is skipped outright, sampling included: exact
-because ``quant(dequant(v)) == v`` for every uint8 ``v``.
+Per frame the pipeline runs the reference's CPU prepare pass on the host
+in Python scalars (`make_aggregate`'s ``process.draw_table``: the pad
+geometry, alpha and operator arrive from `traced_values` as host numbers,
+so no frame waits for the device) and stages its result, the draw table of
+K4 (``kernels/composite.py`` `pack_table`: each draw's position, clamped
+rect, operator, alpha and drawn flag, and whether the background is
+drawn), on the device with one pinned non-blocking copy, under
+``params[DRAW_TABLE]``.  The process samples every pad that can draw at
+its pad size (RGB pads through the K1/K1b sampler, uint8 at identity; YUV
+pads through K1/K1b and the emit K2 to float32), whether or not the table
+draws it this frame, folds every draw over the background in one launch of
+K4, which reads the table on the card, and packs the RGBA8 canvas to the
+output format.  So the launches and their arguments do not depend on where
+the pads are: a moving or fading pad replays one captured CUDA graph
+(`runtime/compiled.py`), as tpuvf's traced geometry recompiles nothing.
 
 Folded overlays (``fold_overlays``, planned by the pipeline for an RGB
 output, tpuvf's ``make_aggregate(..., fold_overlays=)``): each downstream
@@ -39,9 +45,10 @@ stage is a passthrough.
 Pad properties take schedules as ``control("sink_N::prop", ...)`` (the
 ``_ctl_*`` hooks); `navigation_event` hit-tests the pads for the
 pipeline's navigation routing.  Under sp row sharding each band renders its
-canvas rows from the whole pads (`make_aggregate`'s `band`), the pads'
-branches running replicated.  Not ported (ROADMAP): tpuvf's
-split/cells/masked render bodies and ``aggregate_split_ok`` (TPU layouts).
+canvas rows from the whole pads (`make_aggregate`'s `band`) and the
+frame's draw table, the pads' branches running replicated.  Not ported
+(ROADMAP): tpuvf's split/cells/masked render bodies and
+``aggregate_split_ok`` (TPU layouts).
 """
 
 from __future__ import annotations
@@ -62,15 +69,17 @@ from tpuvf_torch.kernels.composite import (
     OP_OVER,
     OP_SOURCE,
     Background,
-    Draw,
+    Source,
     background_colors,
     composite_fold,
+    pack_table,
+    table_size,
 )
 from tpuvf_torch.kernels.emit import emit
-from tpuvf_torch.kernels.overlay import band_rect
 from tpuvf_torch.kernels.sample import LINEAR
 
 BG_CHECKER, BG_BLACK, BG_WHITE, BG_TRANSPARENT = 0, 1, 2, 3
+DRAW_TABLE = "__draw_table__"  # the params key of the staged draw table
 SIZING_NONE, SIZING_KEEP_ASPECT = 0, 1
 
 # (r, g, b, a) of checker cells 0 and 1, by background mode
@@ -319,7 +328,8 @@ class Compositor(Element):
         """tpuvf's per-pad params (same keys) as host numbers, handed over
         as they are: xpos, ypos and operator Python ints, alpha a Python
         float holding its float32 value.  Nothing is staged on `device`:
-        the prepare pass runs on the host."""
+        the prepare pass (``process.draw_table``) reads them on the host,
+        and only its table reaches the device."""
         scalars, out = super().traced_values(device)
         for name, bag in self.pads.items():
             out[f"pad.{name}.xpos"] = int(bag.get("xpos"))
@@ -366,19 +376,25 @@ class Compositor(Element):
                        out_spec: FrameSpec, device, fold_overlays=(),
                        band=None):
         """Plan the aggregate on `device` -> process(pad_inputs, state,
-        params) -> (output planes, state).  With `band` (a
-        ``parallel.bands.Band`` of the canvas) the process renders the
-        canvas rows [band.lo, band.hi) from the whole pads: each draw moved
-        up by the band's first row and clipped to the band (a draw that
-        misses it is not sampled), the checker on the frame's rows.
+        params) -> (output planes, state), with ``process.draw_table(params,
+        pad_meta)``, the host prepare pass -> the frame's int32 draw table
+        (`composite.pack_table`, `process.table_size` entries), which the
+        caller stages on the device as ``params[DRAW_TABLE]``.  With `band`
+        (a ``parallel.bands.Band`` of the canvas) the process renders the
+        canvas rows [band.lo, band.hi) from the whole pads and the frame's
+        table: K4 clips each draw to the band, the checker on the frame's
+        rows.
 
         `pad_inputs` maps each pad name to its canonical device planes;
-        `params` holds this element's `traced_params` and, from the
-        runtime clock, ``params["__pad_meta__"][pad]``: 'active' (the
-        stream has started) and 'eos' (past its last buffer: the frozen
-        last frame keeps drawing unless ignore-inactive-pads).
-        `fold_overlays`: vfoverlay elements blended as final mix draws
-        (module doc); the caller has checked that they can fold."""
+        `params` holds this element's `traced_params` and the table (where
+        it holds none, the process computes it from them and
+        ``params["__pad_meta__"]`` and copies it to `device` itself);
+        `pad_meta` maps each pad to its buffer's flags from the runtime
+        clock: 'active' (the stream has started) and 'eos' (past its last
+        buffer: the frozen last frame keeps drawing unless
+        ignore-inactive-pads).  `fold_overlays`: vfoverlay elements
+        blended as final mix draws (module doc); the caller has checked
+        that they can fold."""
         self._last_pad_specs = dict(pad_specs)
         out_w, out_h = out_spec.width, out_spec.height
         ignore_inactive = bool(self.props.get("ignore-inactive-pads"))
@@ -392,13 +408,11 @@ class Compositor(Element):
                                   _plan_sampler(pad.spec, w, h, device),
                                   pad.spec.format not in RGB_FORMATS))
         out_format, matrix_out = out_spec.format, out_spec.matrix_index
-        row0, rows = (0, out_h) if band is None else (band.lo, band.rows)
+        background = Background(colors, 0 if band is None else band.lo)
+        rows = out_h if band is None else band.rows
         mixes = []  # (overlay name, (4, h, w) float32 rect planes, rect)
         for ov in fold_overlays:
-            rect, planes = ov.fold_rect(out_spec)
-            if band is not None:
-                rect, planes = band_rect(rect, planes, band.lo, band.hi)
-            x0, x1, y0, y1 = rect
+            (x0, x1, y0, y1), planes = ov.fold_rect(out_spec)
             if x1 > x0 and y1 > y0:
                 mixes.append((ov.name, torch.from_numpy(planes).to(device),
                               (x0, y0, x1, y1)))
@@ -412,9 +426,10 @@ class Compositor(Element):
             eos = 0.0 if eos is None else float(eos)
             return (started * (1.0 - eos) if ignore_inactive else started) > 0
 
-        def process(pad_inputs, state, params):
-            # -- the prepare pass (prepare_frame_start m:159-246), host ----
-            pad_meta = params.get("__pad_meta__") or {}
+        def draw_table(params, pad_meta, out=None):
+            """The prepare pass (prepare_frame_start m:159-246), on the
+            host -> the frame's draw table."""
+            pad_meta = pad_meta or {}
             prep = []
             for d in plans:
                 x = int(params[f"pad.{d.name}.xpos"]) + d.x_off
@@ -446,27 +461,29 @@ class Compositor(Element):
             for i, p in enumerate(prep):
                 # drawn: visible and not obscured by a LATER (higher-zorder)
                 # obscuring pad containing its clamped rect (m:219-246)
-                if not p["visible"] or any(q["obscuring"]
-                                           and contains(q, *p["rect"])
-                                           for q in prep[i + 1:]):
-                    continue
-                d = p["d"]
-                x0, y0, x1, y1 = p["rect"]
-                y0, y1 = max(y0, row0) - row0, min(y1, row0 + rows) - row0
-                if y1 <= y0:
-                    continue  # the draw misses this band
-                draws.append(Draw(
-                    d.sample(pad_inputs[d.name]), p["x"], p["y"] - row0,
-                    (x0, y0, x1, y1), int(params[f"pad.{d.name}.operator"]),
-                    p["alpha"]))
+                drawn = p["visible"] and not any(
+                    q["obscuring"] and contains(q, *p["rect"])
+                    for q in prep[i + 1:])
+                draws.append((p["x"], p["y"], p["rect"],
+                              int(params[f"pad.{p['d'].name}.operator"]),
+                              p["alpha"], drawn))
             # folded overlays: rgb = rgb * (1 - a) + ov * a, alpha kept
-            for name, planes, rect in mixes:
-                draws.append(Draw(planes, rect[0], rect[1], rect, OP_OVER,
-                                  float(params[f"fold.{name}.alpha"]),
-                                  keep_alpha=True))
-            canvas = composite_fold(rows, out_w,
-                                    Background(colors, bg_drawn, row0),
-                                    draws, device)
+            for name, _, rect in mixes:
+                draws.append((rect[0], rect[1], rect, OP_OVER,
+                              float(params[f"fold.{name}.alpha"]), True))
+            return pack_table(bg_drawn, draws, out)
+
+        def process(pad_inputs, state, params):
+            table = params.get(DRAW_TABLE)
+            if table is None:  # a caller that staged none: one copy here
+                table = torch.from_numpy(draw_table(
+                    params, params.get("__pad_meta__"))).to(device)
+            sources = [Source(d.sample(pad_inputs[d.name])) for d in plans]
+            sources += [Source(planes, True) for _, planes, _ in mixes]
+            canvas = composite_fold(rows, out_w, background, sources, table,
+                                    device)
             return convert.pack_rgba(canvas, out_format, matrix_out), state
 
+        process.draw_table = draw_table
+        process.table_size = table_size(len(plans) + len(mixes))
         return process

@@ -202,6 +202,13 @@ class VideoSink(SinkElement):
 
         self._render = (dev, render)
 
+    def payload_key(self):
+        """The window and render rectangle the render plan was built for
+        (a compiled step captures the plan)."""
+        return (self.props.get("window-width"),
+                self.props.get("window-height"),
+                self.props.get("force-aspect-ratio"), self._render_rectangle)
+
     def render_device(self, planes, spec: FrameSpec) -> torch.Tensor:
         """The window buffer ((H, W, 4) uint8 RGBA) of one frame's canonical
         planes, rendered on their device."""

@@ -46,9 +46,16 @@
   controlled properties (`Element.control`) to the output clock's frame
   index, rebuilds if a write changed the structure, and re-reads every
   element's traced values, staging the scalars on the device only when one
-  changed (`runtime/staging.py`).  `run_batched` enqueues a batch's steps
+  changed (`runtime/staging.py`), and each compositor's draw table
+  (its prepare pass on the host).  `run_batched` enqueues a batch's steps
   back to back, its params staged as one (n, k) tensor; `run_live` paces
   `run` on the output clock and drops late ticks.
+- **The compiled step** (`runtime/compiled.py`): `run`, `run_live` and
+  `run_batched` without a mesh run each frame's step over fixed buffers,
+  on the card as one replay of a CUDA graph captured once per key (tpuvf's
+  one jitted program per variant); `step`/`step_sources` and the mesh path
+  run eagerly.  A fault the fused step cannot name is located by re-running
+  the frame eagerly on fresh state (`_locate_failure`).
 - **Navigation**: a vfvideosink's pointer events route upstream through
   the compositors' hit tests to the source (`_wire_navigation`).
 
@@ -73,13 +80,16 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
 from tpuvf_torch.core.frame import HostLayout, from_host_layout
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
+from tpuvf_torch.elements.compositor import DRAW_TABLE
 from tpuvf_torch.parallel import bands as pbands
 from tpuvf_torch.parallel import mesh as pmesh
+from tpuvf_torch.runtime.compiled import CompiledStep
 from tpuvf_torch.runtime.device import get_device
 from tpuvf_torch.runtime.observability import (  # noqa: F401 - re-exported
     PipelineError,
@@ -169,6 +179,7 @@ class Pipeline:
         self._stager = ParamStager(self.device)
         self.navigation_events: List[Dict] = []
         self.stats = PipelineStats()
+        self._compiled_step: Optional[CompiledStep] = None
         self._reset_mesh()
 
     # Pipeline.run's totals (tpuvf's stats), readable and resettable here
@@ -412,6 +423,7 @@ class Pipeline:
         self._sp_replicated, self._sp_rep_sources, self._sp_graph_ok = \
             self._sp_plan()
         self._reset_mesh()
+        self._compiled_step = None  # its graphs are the old build's
         self._built_signature = self._static_signature()
         self._codec_chain = self._collect_codec_chain()
         for sink in self.sinks:
@@ -604,6 +616,58 @@ class Pipeline:
     def _source_spec(self, source: SourceElement) -> FrameSpec:
         return self._outgoing(source)[0].spec
 
+    @property
+    def compiled(self) -> CompiledStep:
+        """The compiled step of this build (made at its first use; a
+        rebuild or `reset` drops it with its graphs)."""
+        if self._built_signature is None:
+            self.build()
+        if self._compiled_step is None:
+            self._compiled_step = CompiledStep(self)
+        return self._compiled_step
+
+    def _table_layout(self) -> list:
+        """[(aggregator stage, offset, size)] of the compositors' draw
+        tables in one flat buffer, in stage order."""
+        out, offset = [], 0
+        for st in self.stages:
+            if st.in_spec is None and not st.passthrough:
+                out.append((st, offset, st.process.table_size))
+                offset += st.process.table_size
+        return out
+
+    def _pad_meta(self, metas: Dict) -> Dict[str, Dict]:
+        """{aggregator name: {pad: buffer flags}} from {source name:
+        flags}, as the flags travel in `step_sources`: through every
+        one-input element, not through an aggregator."""
+        out = {}
+        for st, _, _ in self._table_layout():
+            pads = out[st.element.name] = {}
+            for ln in self._incoming(st.element):
+                node = ln.upstream
+                while not isinstance(node, SourceElement) and not \
+                        _is_aggregator(node):
+                    node = self._incoming(node)[0].upstream
+                pads[ln.sink_pad] = (metas.get(node.name)
+                                     if isinstance(node, SourceElement)
+                                     else None)
+        return out
+
+    def _frame_tables(self, reads, metas):
+        """A frame's draw tables (the compositors' prepare passes on
+        their host values and their pads' flags), back to back as
+        `_table_layout` lays them out; None without a compositor."""
+        layout = self._table_layout()
+        if not layout:
+            return None
+        pad_meta = self._pad_meta(metas)
+        flat = np.empty(sum(n for _, _, n in layout), np.int32)
+        for st, offset, n in layout:
+            name = st.element.name
+            st.process.draw_table(reads[name][1], pad_meta[name],
+                                  out=flat[offset:offset + n])
+        return flat
+
     def upload(self, host_frame) -> Dict[str, torch.Tensor]:
         """The only source's host frame -> canonical device planes."""
         if len(self.sources) != 1:
@@ -639,7 +703,9 @@ class Pipeline:
         optionally with ``"__meta__"``}: -> (tail planes, state), the tail
         planes as ``{sink name: planes}`` when there is more than one sink.
         A stage's failure raises PipelineError naming the element and
-        `frame_index` (Pipeline.run passes its loop's index)."""
+        `frame_index` (Pipeline.run passes its loop's index).  A
+        compositor's draw table, when `params` holds none, is computed
+        from its params and its pads' buffer flags and staged here."""
         produced: Dict[int, Dict] = {}
 
         def value_of(elem) -> Dict:
@@ -663,6 +729,9 @@ class Pipeline:
                         pad_inputs[ln.sink_pad] = _strip_meta(v)
                     prm = dict(params.get(e.name, {}))
                     prm["__pad_meta__"] = pad_meta
+                    if DRAW_TABLE not in prm:  # the prepare pass, staged
+                        prm[DRAW_TABLE] = self._stager.table(
+                            st.process.draw_table(prm, pad_meta))
                     out, new_state[e.name] = st.process(
                         pad_inputs, state.get(e.name, ()), prm)
                 else:
@@ -825,14 +894,15 @@ class Pipeline:
         ``tpuvf/runtime/pipeline.py:1347-1369``): drop the stages, the
         built signature, the carried state (vfdeinterlace's previous frame,
         vfvideofilter's grain counter), the codec chains, the readback
-        buffers, the staged params and the negotiation, so the next run
-        starts fresh."""
+        buffers, the staged params, the compiled step and the negotiation,
+        so the next run starts fresh."""
         self.stages = []
         self._built_signature = None
         self.state = None
         self._codec_chain = {}
         self._rings = {}
         self._stager = ParamStager(self.device)
+        self._compiled_step = None
         self._reset_mesh()
         self._negotiated = False
 
@@ -920,7 +990,8 @@ class Pipeline:
         indices = (range(num_frames) if pace is None
                    else self._paced_indices(num_frames, out_fps, *pace))
         state = self.state
-        uploaded = {}  # source name -> (buffer index, device planes)
+        compiled = self.compiled
+        uploaded = {}  # source name -> buffer index in its fixed input
         pending = []  # frame i-1's readback, delivered after frame i's step
         count = 0
         clock = time.perf_counter
@@ -932,28 +1003,30 @@ class Pipeline:
             self.state = state  # a rebuild merges the current carry
             if self._maybe_rebuild():
                 state = self.state
+                compiled = self.compiled
                 uploaded.clear()
             t1 = clock()
             try:
-                inputs = {}
-                for name, (j, meta) in self._select_buffers(
-                        i, out_fps, infos).items():
-                    cached = uploaded.get(name)
-                    if cached is None or cached[0] != j:
+                selection = self._select_buffers(i, out_fps, infos)
+                for name, (j, _) in selection.items():
+                    if uploaded.get(name) != j:  # a repeat keeps its bytes
                         src = self[name]
-                        host = src.generate(j, self._source_spec(src))
-                        cached = uploaded[name] = (
-                            j, self.upload_sources({name: host})[name])
-                    inputs[name] = dict(cached[1], **{META: meta})
+                        compiled.upload(name, src.generate(
+                            j, self._source_spec(src)))
+                        uploaded[name] = j
                 t2 = clock()
-                params = self.params()
+                reads = read_params(self._active(), self.device)
+                metas = {name: meta for name, (_, meta) in selection.items()}
+                retry = self._eager_retry(selection, reads)
+                compiled.stage(reads, metas)
                 with trace(f"tpuvf_torch.step[{i}]"):
-                    out, state = self.step_sources(inputs, state, params, i)
+                    payloads, state = self._compiled_step_or_locate(
+                        compiled, reads, metas, state, i, retry)
                 self.state = state
                 t3 = clock()
                 # slots in turns by frames run, not by index: a live run
                 # skips indices
-                readback = self._enqueue_readback(out, i, count % 2)
+                readback = self._readback(payloads, i, count % 2, retry)
             except Exception:
                 self._flush_pending(pending)
                 raise
@@ -961,6 +1034,58 @@ class Pipeline:
                                       (t1 - t0) + (t3 - t2), clock() - t3)
             count += 1
         return self._end_run(count, t_run, pending)
+
+    def _compiled_step_or_locate(self, compiled, reads, metas, state,
+                                 index: int, retry):
+        """`CompiledStep.step`; a fault that names no element (a replay's)
+        is located by the frame's eager re-run (`_locate_failure`)."""
+        try:
+            return compiled.step(reads, metas, state, index)
+        except PipelineError:
+            raise
+        except Exception as exc:
+            raise self._locate_failure(index, exc, retry) from exc
+
+    def _eager_retry(self, selection, reads):
+        """A frame's eager re-run on fresh state, for `_locate_failure`:
+        its buffers generated and uploaded anew (the fixed inputs hold a
+        later frame by the time a fault surfaces), its params staged from
+        its host reads."""
+
+        def retry():
+            inputs = {}
+            for name, (j, meta) in selection.items():
+                src = self[name]
+                host = src.generate(j, self._source_spec(src))
+                inputs[name] = dict(self.upload_sources({name: host})[name],
+                                    **{META: meta})
+            params = ParamStager(self.device).frame(reads)
+            self.step_sources(inputs, self._fresh_state(), params)
+
+        return retry
+
+    def _fresh_state(self) -> Dict:
+        return {st.element.name: st.element.init_state(
+                    st.in_spec, st.out_spec, self.device)
+                for st in self.stages if not st.passthrough}
+
+    def _locate_failure(self, index: int, exc: Exception,
+                        retry) -> PipelineError:
+        """tpuvf's ``_locate_failure`` (``tpuvf/runtime/pipeline.py:
+        1873-1891``): a fault of the compiled step names no stage, so the
+        frame is re-run eagerly on fresh state; the element whose op fails
+        there is named, else "<pipeline>".  Best effort: a fault that
+        leaves the card unusable fails the re-run's first op."""
+        if retry is not None:
+            try:
+                retry()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            except PipelineError as located:
+                return PipelineError(located.element, index, exc)
+            except Exception:  # noqa: BLE001 - not reproduced: unnamed
+                pass
+        return PipelineError("<pipeline>", index, exc)
 
     def _hand_over(self, pending, readbacks, upload: float, step: float,
                    readback: float) -> list:
@@ -1046,6 +1171,7 @@ class Pipeline:
             return self._run_mesh(lay, num_frames, batch_size, out_fps,
                                   infos, structure)
         state = self.state
+        compiled = self.compiled
         pending: List[tuple] = []
         done = batch = 0
         clock = time.perf_counter
@@ -1059,23 +1185,28 @@ class Pipeline:
                 for j in range(n):
                     self._ctl_sync(done + j, structure)
                     rows.append(read_params(self._active(), self.device))
-                params = self._stager.stage_rows(rows)
-                t1 = clock()
                 selections = [self._select_buffers(done + j, out_fps, infos)
                               for j in range(n)]
-                planes = self._upload_batch(selections)
+                metas = [{name: meta for name, (_, meta) in sel.items()}
+                         for sel in selections]
+                staged = compiled.stage_batch(rows, metas)
+                t1 = clock()
+                pieces = self._upload_batch(selections, split=False)
                 t2 = clock()
                 for j in range(n):
                     ts = clock()
-                    inputs = {name: dict(planes[name, k], **{META: meta})
-                              for name, (k, meta) in selections[j].items()}
+                    for name, (k, _) in selections[j].items():
+                        compiled.load_inputs(name, pieces[name, k])
+                    compiled.load_staged(staged[j])
+                    retry = self._eager_retry(selections[j], rows[j])
                     with trace(f"tpuvf_torch.step[{done + j}]"):
-                        out, state = self.step_sources(inputs, state,
-                                                       params[j], done)
+                        payloads, state = self._compiled_step_or_locate(
+                            compiled, rows[j], metas[j], state, done, retry)
                     self.state = state
                     tr = clock()
-                    readbacks.append(self._enqueue_readback(
-                        out, done + j, (batch % 2) * batch_size + j))
+                    readbacks.append(self._readback(
+                        payloads, done + j, (batch % 2) * batch_size + j,
+                        retry))
                     t_step += tr - ts
                     t_read += clock() - tr
             except Exception:
@@ -1347,14 +1478,19 @@ class Pipeline:
                     self._ctl_sync(done + j, structure)
                     rows.append({dev: read_params(self._active(), dev)
                                  for dev in devices})
+                selections = [self._select_buffers(done + j, out_fps, infos)
+                              for j in range(n)]
+                tables = [self._frame_tables(
+                    rows[j][devices[0]],
+                    {name: meta for name, (_, meta) in sel.items()})
+                    for j, sel in enumerate(selections)]
                 params = {}
                 for dev in devices:
                     with _on(dev):  # the stager's event on its card
-                        params[dev] = self._mesh_stagers[dev].stage_rows(
-                            [r[dev] for r in rows])
+                        params[dev] = self._stage_mesh_rows(
+                            self._mesh_stagers[dev], [r[dev] for r in rows],
+                            tables)
                 t1 = clock()
-                selections = [self._select_buffers(done + j, out_fps, infos)
-                              for j in range(n)]
                 planes = [self._upload_batch(
                     selections[d * per:min(n, (d + 1) * per)], devs[0])
                     for d, devs in enumerate(lay.devices)]
@@ -1397,12 +1533,28 @@ class Pipeline:
                 torch.cuda.synchronize(dev)
         return self._end_run(done, t_run, pending)
 
-    def _upload_batch(self, selections, device=None) -> Dict[tuple, Dict]:
+    def _stage_mesh_rows(self, stager: ParamStager, rows, tables) -> list:
+        """A batch's params on one mesh device: the scalars as one (n, k)
+        copy, the draw tables (`_frame_tables`, one a frame) as one (n, T)
+        copy, each frame's compositors reading their table's row."""
+        params = stager.stage_rows(rows)
+        layout = self._table_layout()
+        if layout:
+            flat = stager.table_rows(tables)
+            for j, prm in enumerate(params):
+                for st, offset, size in layout:
+                    name = st.element.name
+                    prm[name] = dict(prm[name], **{
+                        DRAW_TABLE: flat[j, offset:offset + size]})
+        return params
+
+    def _upload_batch(self, selections, device=None,
+                      split: bool = True) -> Dict[tuple, Dict]:
         """{(source name, buffer index): device planes} for the distinct
         buffers a batch's `_select_buffers` picked: per source, one host
         copy into one buffer and one non-blocking copy
         (`HostLayout.upload_many`) to `device` (the pipeline's by
-        default)."""
+        default).  Without `split`, each buffer's host-layout pieces."""
         device = self.device if device is None else device
         wanted: Dict[str, List[int]] = {}
         for sel in selections:
@@ -1417,7 +1569,8 @@ class Pipeline:
             hosts = [src.generate(j, spec) for j in idx]
             for j, pieces in zip(idx, HostLayout(spec).upload_many(
                     hosts, device)):
-                out[name, j] = from_host_layout(pieces, spec)
+                out[name, j] = (from_host_layout(pieces, spec) if split
+                                else pieces)
         return out
 
     def _ring_buffer(self, sink, layout: HostLayout, slot: int):
@@ -1434,19 +1587,30 @@ class Pipeline:
             ring.append(layout.buffer(pinned))
         return ring[slot]
 
-    def _enqueue_readback(self, out, index: int, slot: int):
-        """Frame `index`'s step output -> (index, [(sink, layout, host
-        buffer)], event): each sink's `device_payload` (the host-layout
-        permutation, a vfvideosink's render) enqueued on the device and its
-        non-blocking copies into the sink's readback buffer `slot`, then one
-        event recorded after them (None on the CPU)."""
+    def _payloads(self, out, index: int) -> list:
+        """Frame `index`'s step output -> [(sink, layout, device pieces)]:
+        each sink's `device_payload` (the host-layout permutation, a
+        vfvideosink's render), enqueued on the device."""
         sinks = self.sinks
-        copies = []
+        payloads = []
         for sink in sinks:
             planes = out[sink.name] if len(sinks) > 1 else out
-            spec = self._incoming(sink)[0].spec
             try:
-                layout, pieces = sink.device_payload(planes, spec)
+                layout, pieces = sink.device_payload(
+                    planes, self._incoming(sink)[0].spec)
+            except Exception as exc:
+                raise PipelineError(sink.name, index, exc) from exc
+            payloads.append((sink, layout, pieces))
+        return payloads
+
+    def _readback(self, payloads, index: int, slot: int, retry=None):
+        """`_payloads` -> (index, [(sink, layout, host buffer)], event,
+        retry): the non-blocking copies into each sink's readback buffer
+        `slot`, then one event recorded after them (None on the CPU);
+        `retry` re-runs the frame eagerly should its wait fail."""
+        copies = []
+        for sink, layout, pieces in payloads:
+            try:
                 copies.append((sink, layout, layout.readback(
                     pieces, self._ring_buffer(sink, layout, slot))))
             except Exception as exc:
@@ -1455,21 +1619,26 @@ class Pipeline:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return index, copies, event
+        return index, copies, event, retry
 
-    def _deliver(self, index: int, copies, event) -> None:
+    def _enqueue_readback(self, out, index: int, slot: int):
+        """`_payloads` and `_readback` of an eager step's output."""
+        return self._readback(self._payloads(out, index), index, slot)
+
+    def _deliver(self, index: int, copies, event, retry=None) -> None:
         """Wait on frame `index`'s event, then run each sink's host codec
         chain and `deliver` its payload (tpuvf's ``_consume_all``,
         ``tpuvf/runtime/pipeline.py:1893-1914``), naming the sink whose
         consume or codec failed.  A device fault that surfaces at the wait
-        names no element."""
+        is located by the frame's eager re-run (`_locate_failure`), or
+        names "<pipeline>"."""
         edge = self.stats.edge_seconds
         t0 = time.perf_counter()
         if event is not None:
             try:
                 event.synchronize()
             except Exception as exc:
-                raise PipelineError("<pipeline>", index, exc) from exc
+                raise self._locate_failure(index, exc, retry) from exc
         t1 = time.perf_counter()
         for sink, layout, flat in copies:
             try:

@@ -19,12 +19,19 @@ and a buffer is written again only after the copy that read it has run
 place: a changed frame gets a new one, so a queued step keeps reading its
 own values.  A batch (`stage_rows`) stacks its frames' scalars into one
 (n, k) buffer with one copy, and each frame reads its row.
+
+The compositor's draw tables (int32, ``kernels/composite.py``) travel the
+same way (`table`, `table_rows`), through pinned buffers of their own.
+The compiled step (`runtime/compiled.py`) stages a frame's scalars and
+tables into its fixed device buffers instead (`put`): those are written in
+place, in stream order, behind the replays that read them before.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 # {element name: (scalars {key: float}, other values {key: value})}
@@ -39,12 +46,12 @@ def read_params(elements, device) -> Reads:
 class ParamStager:
     """Stages the scalars of `read_params` on one device."""
 
-    SLOTS = 2  # pinned buffers, taken in turns
+    SLOTS = 2  # pinned buffers a dtype, taken in turns
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._slots: List[list] = []  # [pinned buffer, event or None]
-        self._turn = 0
+        # dtype -> (turn, [[pinned buffer, event or None]])
+        self._rings: Dict[torch.dtype, list] = {}
         self._last = None  # (keys, values) of the last staged frame
         self._views: List[torch.Tensor] = []
 
@@ -86,22 +93,44 @@ class ParamStager:
         staged = self._stage(values)
         return [self._assemble(r, list(staged[j])) for j, r in enumerate(rows)]
 
+    def table(self, table: np.ndarray) -> torch.Tensor:
+        """A draw table (int32) -> a new tensor on the device."""
+        return self.put(torch.from_numpy(table))
+
+    def table_rows(self, tables: List[np.ndarray]) -> torch.Tensor:
+        """A batch's tables, one a frame, -> one (n, T) int32 device tensor
+        from one copy."""
+        return self.put(torch.from_numpy(np.stack(tables)))
+
     def _stage(self, values: List[tuple]) -> torch.Tensor:
         """(n, k) host values -> a new (n, k) float32 tensor on the device."""
+        return self.put(torch.tensor(values, dtype=torch.float32))
+
+    def put(self, host: torch.Tensor, out: torch.Tensor | None = None):
+        """Host tensor -> the device, into `out` (a device tensor of its
+        shape and dtype) or a new tensor; -> that tensor.  On a GPU through
+        a pinned buffer of the dtype's ring and one non-blocking copy."""
         if self.device.type != "cuda":
-            return torch.tensor(values, dtype=torch.float32, device=self.device)
-        n, k = len(values), len(values[0])
-        if len(self._slots) < self.SLOTS:
-            self._slots.append([None, None])
-        slot = self._slots[self._turn % len(self._slots)]
-        self._turn += 1
+            if out is None:
+                return host.to(self.device, copy=True)
+            return out.copy_(host)
+        ring = self._rings.setdefault(host.dtype, [0, []])
+        slots = ring[1]
+        if len(slots) < self.SLOTS:
+            slots.append([None, None])
+        slot = slots[ring[0] % len(slots)]
+        ring[0] += 1
         if slot[1] is not None:
             slot[1].synchronize()  # the copy that read this buffer has run
-        if slot[0] is None or slot[0].numel() < n * k:
-            slot[0] = torch.empty(n * k, dtype=torch.float32, pin_memory=True)
-        host = slot[0][:n * k].view(n, k)
-        host.copy_(torch.tensor(values, dtype=torch.float32))
-        out = host.to(self.device, non_blocking=True)
+        n = host.numel()
+        if slot[0] is None or slot[0].numel() < n:
+            slot[0] = torch.empty(n, dtype=host.dtype, pin_memory=True)
+        pinned = slot[0][:n].view(host.shape)
+        pinned.copy_(host)
+        if out is None:
+            out = pinned.to(self.device, non_blocking=True)
+        else:
+            out.copy_(pinned, non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record()
         return out
