@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
     python3 chip_smoke.py --host-steps   # only the chains' host-side times
     python3 chip_smoke.py --mesh         # only the card, the build and (m)
-    python3 chip_smoke.py --compiled     # only the card, the build, K4, (n)
+    python3 chip_smoke.py --compiled     # the card, the build, K4, (n), (o)
 
 Phases (each prints its own lines; any failure exits 1 with no result line):
 
@@ -136,10 +136,15 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
 (m) dp/sp sharding (`run_batched(mesh=make_mesh(...), sp_axis="sp")`),
    on distinct cards where the machine has enough, else cuda:0 repeated
    (the line [m devices] says which), every path held 0 LSB to the same
-   pipeline's unsharded run_batched on the card, 8 frames a path at full
-   width, each path's counters read alone and its launches printed beside
-   the unsharded run's (sp times as many; the compositor samples a pad
-   only on the bands its rect reaches): (b) on {dp 1, sp 2} and {dp 1,
+   pipeline's unsharded run_batched on the card and to the same mesh run
+   with every step eager, 8 frames a path at full width, run twice: a
+   warm-up (each frame key once eagerly, the shard graphs captured), then
+   the run whose counters are read alone, through one shard graph replay a
+   shard a batch and no frame eager where each shard lies on one card,
+   its launches printed beside the unsharded run's (sp times as many; the
+   compositor samples a pad only on the bands its rect reaches); fps
+   unsharded, with the shard graphs and eager, in turns: (b) on {dp 1,
+   sp 2} and {dp 1,
    sp 4}; (d) on {dp 1, sp 4} (the 4-row blur halo); (c) -> NV12 on {dp 1,
    sp 2} (the chroma halo, the LUT, the YUV pack); (h) and (h') on {dp 1,
    sp 2} (every row gathered); (g) on {dp 1, sp 2} over two calls of 8
@@ -147,15 +152,14 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    and K6 per band); (b) with a 16-entry brightness ramp on {dp 2, sp 2}
    against run(); (g) on {dp 2} with independent_streams=True against each
    shard's frames as their own stream, and without the flag the
-   ValueError naming the deinterlacer; run_batched's fps with and without
-   the mesh in turns, a reading; and the phase's time;
+   ValueError naming the deinterlacer; and the phase's time;
 (n) the compiled step (``runtime/compiled.py``: each frame's step over
    fixed buffers, captured once per key as a CUDA graph and replayed):
-   chains (a)-(k) under Pipeline.run, and (l)'s paths under their loops
-   ((b)'s brightness ramp and (f)'s sink_0::xpos ramp under run() and
-   run_batched, each at one capture over 16 frames; (g) under two
-   run_batched calls; run_live on (a); (f) into the navigation chain's
-   vfvideosink), each against the same run with every step eager
+   chains (a)-(k) under Pipeline.run, and (l)'s paths under run() and
+   run_live ((b)'s brightness ramp and (f)'s sink_0::xpos ramp, each at
+   one capture over 16 frames; run_live on (a); (f) into the navigation
+   chain's vfvideosink; run_batched's are (o)'s), each against the same
+   run with every step eager
    (`step_sources` and the sinks' payloads over the same buffers), byte
    for byte on every sink's frames (a live run: the frames both
    delivered); per path the keys, captures, replays and eager frames, the
@@ -167,6 +171,21 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    stage's host read, which must raise PipelineError naming that stage at
    the capturing frame; each path's counters set to 0 just before it and
    read just after;
+(o) one graph a batch (`CompiledStep.step_batch`: run_batched's n steps
+   captured as one CUDA graph once each frame key has run eagerly, one
+   replay a batch): (b) at 4K with a 16-entry brightness ramp and (f) with
+   a sink_0::xpos ramp (two calls of 16, batches of 8: one capture, three
+   replays), (g) greedy-H over two calls of 8 and (e'), (h) and (c) ->
+   NV12 over two calls of 8 (one capture, on the second call, and one
+   replay), each
+   against the same calls with every step eager, byte for byte; per path
+   the batch captures and replays, each capture's peak device memory
+   (`torch.cuda.max_memory_allocated` around it), the host step a batch
+   (params staged and the step's enqueue) and run_batched's fps, eager and
+   with the graphs in turns; then a batch capture broken by a stage's host
+   read, which must raise PipelineError naming that stage at the batch's
+   first frame; each path's counters set to 0 just before it and read
+   just after;
 5. small pipelines on the card against the repo's numpy oracle of the
    Metal semantics (tests/oracle), within its 2-LSB tolerance: b/c/s,
    b/c/s + chroma key + a 9^3 LUT, a BGRA + NV12 (alpha 0.6) composite
@@ -2106,58 +2125,97 @@ def launch_text(launches) -> str:
     return ", ".join(f"{k} {v}" for k, v in launches.items() if v)
 
 
+def one_card_shards(mesh, sp_axis) -> bool:
+    """Whether every dp shard's bands lie on one card (its graph holds the
+    whole shard)."""
+    from tpuvf_torch.parallel import mesh as pmesh
+
+    return all(len(set(devs)) == 1
+               for devs in pmesh.layout(mesh, sp_axis).devices)
+
+
 def mesh_path(label, desc, feeds, axes, expect, card, calls=1, exact=(),
               **kw):
     """Drive `desc` through run_batched on a mesh of `axes` (rows over
     'sp' where the mesh has it) and unsharded, both on the card, `calls`
     calls of the fed frames each (batch 8; each call's clock restarts at
-    buffer 0 while the carried state goes on); each run's counters set to
-    0 just before it and read just after.  The frames must be equal (0
-    LSB); the kernels of `exact` must launch sp times as often as
-    unsharded; then run_batched's fps with and without the mesh, a
-    reading.  -> the mesh run's launches."""
+    buffer 0 while the carried state goes on), twice: a warm-up, in which
+    every frame key runs eagerly once and the graphs are captured, then
+    the run whose counters are set to 0 just before it and read just
+    after.  The mesh runs through its shard graphs (one replay a shard a
+    batch; no frame eager after the warm-up where each shard lies on one
+    card), and a third pipeline runs the same mesh with every step eager
+    (`eager_steps`).  The frames of all three must be equal (0 LSB), the
+    kernels of `exact` must launch sp times as often as unsharded; then
+    run_batched's fps unsharded, with the shard graphs and eager, a
+    reading.  -> the counted mesh run's launches."""
     per = len(max(feeds.values(), key=len))
     frames = per * calls
     sp_axis = "sp" if "sp" in axes else None
     mesh = mesh_of(axes)
     plain = fed_pipeline(desc, feeds, "cuda")
     sharded = fed_pipeline(desc, feeds, "cuda")
+    eager = fed_pipeline(desc, feeds, "cuda")
+    eager_steps(eager)
 
     def drive_plain():
         return sum(plain.run_batched(per, batch_size=FRAMES)
                    for _ in range(calls))
 
-    def drive_mesh():
-        return sum(sharded.run_batched(per, batch_size=FRAMES, mesh=mesh,
-                                       sp_axis=sp_axis, **kw)
+    def drive_mesh(pipe):
+        return sum(pipe.run_batched(per, batch_size=FRAMES, mesh=mesh,
+                                    sp_axis=sp_axis, **kw)
                    for _ in range(calls))
 
+    drive_plain()
+    drive_mesh(sharded)
+    drive_mesh(eager)
     want = counted_run(f"{label} unsharded", plain, frames, expect,
                        drive_plain)
-    got = counted_run(f"{label} {axes}", sharded, frames, expect, drive_mesh)
+    cs = sharded.compiled
+    cs.eager = cs.batch_captures = cs.batch_replays = 0
+    got = counted_run(f"{label} {axes}", sharded, frames, expect,
+                      lambda: drive_mesh(sharded))
+    counts = (cs.batch_replays, cs.batch_captures, cs.eager)
+    drive_mesh(eager)
     mesh_same(f"{label} {axes}", sharded["appsink0"].frames,
               plain["appsink0"].frames)
+    mesh_same(f"{label} {axes} graphs against eager",
+              sharded["appsink0"].frames, eager["appsink0"].frames)
     sp = axes.get("sp", 1)
     wrong = {k: (got[k], want[k]) for k in exact if got[k] != sp * want[k]}
     if wrong:
         fail(f"{label} {axes}: launches (mesh, unsharded) {wrong}; expected "
              f"sp={sp} times the unsharded count")
-    fps = {"unsharded": [], "mesh": []}
-    runs = {"unsharded": (plain, drive_plain), "mesh": (sharded, drive_mesh)}
-    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+    dp = axes.get("dp", 1)
+    one_card = one_card_shards(mesh, sp_axis)
+    if one_card and (cs.eager or cs.batch_replays != calls * dp):
+        fail(f"{label} {axes}: after the warm-up eager {cs.eager}, shard "
+             f"replays {cs.batch_replays}; expected 0 and {calls * dp} (one "
+             f"a shard a batch)")
+    fps = {"unsharded": [], "mesh": [], "eager": []}
+    runs = {"unsharded": (plain, drive_plain),
+            "mesh": (sharded, lambda: drive_mesh(sharded)),
+            "eager": (eager, lambda: drive_mesh(eager))}
+    for name in ("unsharded", "mesh", "eager", "eager", "mesh", "unsharded"):
         pipe, drive = runs[name]
         pipe["appsink0"].frames.clear()
         fps[name].append(run_fps(pipe, drive)[0])
     devs = [str(d) for d in mesh.devices.flat]
     print(f"[m mesh] {label} on {axes} ({', '.join(devs)}): = unsharded "
-          f"run_batched 0 LSB on {frames} frames ({calls} call"
-          f"{'s' if calls > 1 else ''}) | launches mesh: {launch_text(got)};"
-          f" unsharded: {launch_text(want)}", flush=True)
+          f"run_batched and = the eager mesh, 0 LSB on {2 * frames} frames "
+          f"({calls} call{'s' if calls > 1 else ''} twice) | after the "
+          f"warm-up: shard replays {counts[0]}, captures {counts[1]}, "
+          f"eager {counts[2]}"
+          f"{'' if one_card else ' (shards across cards run eagerly)'} | "
+          f"launches mesh: {launch_text(got)}; unsharded: "
+          f"{launch_text(want)}", flush=True)
     print(f"[m fps] {label} {axes}: run_batched fps in turns (unsharded, "
-          f"mesh, mesh, unsharded; a reading): unsharded "
+          f"graphs, eager, eager, graphs, unsharded; a reading): unsharded "
           + ", ".join(f"{v:.2f}" for v in fps["unsharded"]) + "; mesh "
-          + ", ".join(f"{v:.2f}" for v in fps["mesh"]) + f" | {card}",
-          flush=True)
+          "graphs " + ", ".join(f"{v:.2f}" for v in fps["mesh"])
+          + "; mesh eager " + ", ".join(f"{v:.2f}" for v in fps["eager"])
+          + f" | {card}", flush=True)
     return got
 
 
@@ -2194,26 +2252,40 @@ def mesh_ramp(card):
 
 
 def mesh_streams(card):
-    """(g) on {dp: 2} with independent_streams=True: each shard's 4 frames
-    equal their own unsharded stream; without the flag the run raises a
+    """(g) on {dp: 2} with independent_streams=True, two calls of 8 (4
+    frames a shard a call): each shard's frames equal their own unsharded
+    stream over two calls; the second call replays one graph a shard (each
+    shard lies on one card, on distinct cards where the machine has two)
+    and runs no frame eagerly; without the flag the run raises a
     ValueError naming the deinterlacer."""
     label = "(m) (g) greedy-H 1080i, dp=2"
     frames = i420_moving_block(FRAMES, 1920, 1080, seed=46)
     mesh = mesh_of({"dp": 2})
     pipe = fed_pipeline(CONFIG4, {"appsrc0": frames}, "cuda")
+
+    def call():
+        return pipe.run_batched(FRAMES, batch_size=FRAMES, mesh=mesh,
+                                independent_streams=True)
+
     got = counted_run(f"{label} independent_streams", pipe, FRAMES,
-                      (f"K5={FRAMES}", "!K1", "!K1b", "!K2"),
-                      lambda: pipe.run_batched(FRAMES, batch_size=FRAMES,
-                                               mesh=mesh,
-                                               independent_streams=True))
+                      (f"K5={FRAMES}", "!K1", "!K1b", "!K2"), call)
+    cs = pipe.compiled
+    cs.eager = cs.batch_replays = 0
+    call()
+    if cs.eager or cs.batch_replays != 2:
+        fail(f"{label}: the second call ran {cs.eager} frames eagerly and "
+             f"{cs.batch_replays} shard replays; expected 0 and 2")
     half = FRAMES // 2
     for d in range(2):
         own = fed_pipeline(CONFIG4, {"appsrc0": frames[d * half:
                                                        (d + 1) * half]},
                            "cuda")
         own.run_batched(half, batch_size=half)
-        mesh_same(f"{label} shard {d}", pipe["appsink0"].frames[
-            d * half:(d + 1) * half], own["appsink0"].frames)
+        own.run_batched(half, batch_size=half)
+        mesh_same(f"{label} shard {d}", [
+            f for c in range(2) for f in pipe["appsink0"].frames[
+                c * FRAMES + d * half:c * FRAMES + (d + 1) * half]],
+            own["appsink0"].frames)
     refused = fed_pipeline(CONFIG4, {"appsrc0": frames}, "cuda")
     try:
         refused.run_batched(FRAMES, batch_size=FRAMES, mesh=mesh)
@@ -2224,9 +2296,11 @@ def mesh_streams(card):
     else:
         fail(f"{label}: dp=2 without independent_streams ran")
     print(f"[m mesh] {label} ({', '.join(str(d) for d in mesh.devices.flat)}"
-          f"): independent_streams=True, each shard's {half} frames = its "
-          f"own unsharded stream, 0 LSB; K5 {got['K5']}; without the flag "
-          f"ValueError naming vfmetaldeinterlace0 | {card}", flush=True)
+          f"): independent_streams=True, two calls, each shard's {half} "
+          f"frames a call = its own unsharded stream, 0 LSB; K5 "
+          f"{got['K5']} in the first; the second call one replay a shard, "
+          f"no frame eager; without the flag ValueError naming "
+          f"vfmetaldeinterlace0 | {card}", flush=True)
     return got
 
 
@@ -2333,16 +2407,11 @@ def record_sinks(pipe) -> dict:
 
 
 def eager_steps(pipe) -> None:
-    """Every frame of `pipe`'s runs steps eagerly from now on: the compiled
-    step's body (`step_sources` and the sinks' payloads over its fixed
-    buffers), never a graph.  Phase (n)'s reference."""
-    cs = pipe.compiled
-
-    def step(reads, metas, state, index):
-        cs.eager += 1
-        return cs._body(reads, metas, cs._load_state(state), index)
-
-    cs.step = step
+    """Every frame, batch and shard of `pipe`'s runs steps eagerly from now
+    on: the compiled step's bodies (`step_sources` or `_step_bands` and the
+    sinks' payloads over its fixed buffers), never a graph
+    (`CompiledStep.graphs` off).  Phases (m), (n) and (o)'s reference."""
+    pipe.compiled.graphs = False
 
 
 def graph_step_us(pipe) -> tuple:
@@ -2562,8 +2631,8 @@ def phase_compiled(tmp, card):
                                           FRAMES, expect)
         add(launches)
         print(f"[n compiled] {label}: {text}", flush=True)
-    # (l)'s paths: the ramps (one capture over 16 frames), the batched and
-    # live loops, the window of the navigation chain
+    # (l)'s paths under run(): the ramps (one capture over 16 frames), the
+    # live loop, the window of the navigation chain (run_batched's: (o))
     ramp = [float(v) for v in np.linspace(0.02, 0.3, LFRAMES)]
     feeds_b = {"appsrc0": nv12_frames(LFRAMES, 3840, 2160, seed=3842)}
 
@@ -2581,7 +2650,6 @@ def phase_compiled(tmp, card):
         pipe["c"].control("sink_0::xpos", xramp)
         return pipe
 
-    feeds_g = {"appsrc0": i420_moving_block(8, 1920, 1080, seed=47)}
     live = ("appsrc format=NV12 width=1920 height=1080 ! "
             "video/x-raw,framerate=30/1 ! vfmetalconvertscale ! "
             f"video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! appsink")
@@ -2591,18 +2659,8 @@ def phase_compiled(tmp, card):
     paths = [
         ("(l) (b) 4K brightness ramp, run()", ramp_b, lambda p: p.run(),
          LFRAMES, ("K1", "K1b", "K2"), 1, False),
-        ("(l) (b) 4K brightness ramp, run_batched", ramp_b,
-         lambda p: p.run_batched(LFRAMES, batch_size=8), LFRAMES,
-         ("K1", "K1b", "K2"), 1, False),
         ("(l) (f) sink_0::xpos ramp, run()", ramp_f, lambda p: p.run(),
          LFRAMES, ("K1", "K1b", "K2", "K4"), 1, False),
-        ("(l) (f) sink_0::xpos ramp, run_batched", ramp_f,
-         lambda p: p.run_batched(LFRAMES, batch_size=8), LFRAMES,
-         ("K1", "K1b", "K2", "K4"), 1, False),
-        ("(l) (g) greedy-H, run_batched(8) twice",
-         lambda: fed_pipeline(CONFIG4, feeds_g, "cuda"),
-         lambda p: p.run_batched(8) + p.run_batched(8), LFRAMES,
-         (f"K5={LFRAMES}",), None, False),
         ("(l) run_live (a) 30 fps", lambda: fed_pipeline(live, feeds_a,
                                                          "cuda"),
          lambda p: p.run_live(LFRAMES) + p.stats.frames_dropped, LFRAMES,
@@ -2621,6 +2679,220 @@ def phase_compiled(tmp, card):
     capture_failure()
     dead_graphs_before_capture()
     print(f"[n time] phase (n) took {time.perf_counter() - t0:.1f} s | "
+          f"{card}", flush=True)
+    return total
+
+
+# -- phase (o): one graph a batch ----------------------------------------------
+
+
+def capture_memory(pipe) -> list:
+    """Measure each of `pipe`'s compiled-step captures: -> a list that
+    gets, per capture, (peak bytes allocated during it, bytes it left
+    allocated), each above what was allocated just before it
+    (`torch.cuda.max_memory_allocated` after resetting the peak).  The
+    collector runs first, as the capture runs it: what it frees is not
+    the capture's."""
+    import gc
+
+    import torch
+
+    cs = pipe.compiled
+    capture = cs._capture
+    seen = []
+
+    def measured(body, device, index):
+        gc.collect()
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        entry = capture(body, device, index)
+        torch.cuda.synchronize(device)
+        seen.append((torch.cuda.max_memory_allocated(device) - base,
+                     torch.cuda.memory_allocated(device) - base))
+        return entry
+
+    cs._capture = measured
+    return seen
+
+
+def batch_path(label, make, per, calls, expect, captures, replays, card):
+    """One path of phase (o): `make()` -> a fresh pipeline on the card,
+    driven by `calls` run_batched calls of `per` frames (batch 8) through
+    the batch graphs (its counters set to 0 just before and read just
+    after, `counted_run`), against the same calls with every step eager
+    (`eager_steps`), byte for byte on every sink's frames.  The batch
+    graphs must be captured `captures` times and replayed `replays` times
+    (one capture a batch key, one replay a batch once its frame keys have
+    run).  Then the host step a batch (`edge_seconds`' step: params
+    re-read and staged, and the step's enqueue) and run_batched's fps,
+    eager and with the graphs in turns, and each capture's peak memory;
+    -> the graph run's launches."""
+    frames = per * calls
+    graph = make()
+    got = record_sinks(graph)
+    memory = capture_memory(graph)
+
+    def drive(pipe):
+        return sum(pipe.run_batched(per, batch_size=8) for _ in range(calls))
+
+    launches = counted_run(label, graph, frames, expect,
+                           lambda: drive(graph))
+    cs = graph.compiled
+    eager = make()
+    want = record_sinks(eager)
+    eager_steps(eager)
+    drive(eager)
+    for sink, frames_want in want.items():
+        if got[sink] != frames_want or len(frames_want) != frames:
+            fail(f"{label}: {sink}'s {len(got[sink])} frames of the batch "
+                 f"graphs differ from the eager run's {len(frames_want)}")
+    counts = (f"batch captures {cs.batch_captures}, replays "
+              f"{cs.batch_replays}, eager frames {cs.eager}")
+    if cs.batch_captures != captures or cs.batch_replays != replays:
+        fail(f"{label}: {counts}; expected {captures} captures and "
+             f"{replays} replays")
+    for pipe in (graph, eager):
+        for sink in pipe.sinks:
+            del sink.deliver  # record_sinks' wrapper: keep no more bytes
+    fps = {"eager": [], "graphs": []}
+    step = {"eager": [], "graphs": []}
+    for name in ("eager", "graphs", "graphs", "eager"):
+        pipe = graph if name == "graphs" else eager
+        for sink in pipe.sinks:
+            getattr(sink, "frames", []).clear()
+        rate, edge = run_fps(pipe, lambda pipe=pipe: drive(pipe))
+        fps[name].append(rate)
+        step[name].append(edge["step"] * 8)
+    peak = ", ".join(f"{p / 2**20:.1f} MiB peak, {h / 2**20:.1f} MiB held"
+                     for p, h in memory)
+    print(f"[o batch] {label}: graphs = eager byte-equal on {frames} frames "
+          f"({calls} call{'s' if calls > 1 else ''} of {per}) | {counts} | "
+          f"launches {launch_text(launches)} | captures: {peak}",
+          flush=True)
+    print(f"[o host] {label}: host step a batch of 8, ms (params staged + "
+          f"the step's enqueue; eager, graphs, graphs, eager): eager "
+          + ", ".join(f"{v:.3f}" for v in step["eager"]) + "; graphs "
+          + ", ".join(f"{v:.3f}" for v in step["graphs"])
+          + " | run_batched fps: eager "
+          + ", ".join(f"{v:.2f}" for v in fps["eager"]) + "; graphs "
+          + ", ".join(f"{v:.2f}" for v in fps["graphs"]) + f" | {card}",
+          flush=True)
+    return launches
+
+
+def batch_capture_failure():
+    """A batch capture that an element's op breaks (a host read of a device
+    value, legal eagerly) raises PipelineError naming that element at the
+    batch's first frame; the eager batch before it is delivered."""
+    from tpuvf_torch.runtime.observability import PipelineError
+
+    desc = ("appsrc format=NV12 width=1920 height=1080 ! vfmetalconvertscale "
+            f"! video/x-raw,format=BGRA,width=640,height=480 ! {BCS} ! "
+            f"appsink")
+    pipe = fed_pipeline(desc, {"appsrc0": nv12_frames(16, 1920, 1080, 8)},
+                        "cuda")
+    st = next(st for st in pipe.stages
+              if st.element.ELEMENT_NAME == "vfvideofilter")
+    real = st.process
+
+    def process(planes, state, params):
+        out, state = real(planes, state, params)
+        int(out["rgba"][0, 0, 0])  # waits for the card: no capture can
+        return out, state
+
+    st.process = process
+    try:
+        pipe.run_batched(16, batch_size=8)
+    except PipelineError as exc:
+        if exc.element != st.element.name or exc.frame_index != 8:
+            fail(f"(o) capture failure: named {exc.element!r} at frame "
+                 f"{exc.frame_index}, not {st.element.name!r} at 8")
+        if pipe.compiled.eager != 8 or len(pipe["appsink0"].frames) != 8:
+            fail("(o) capture failure: the eager batch was not delivered "
+                 "or a frame ran past the failed capture")
+        print(f"[o capture failure] a host read in {st.element.name}'s "
+              f"stage: PipelineError names {exc.element!r} at frame "
+              f"{exc.frame_index}, the second batch's first "
+              f"({type(exc.cause).__name__}); batch 0's 8 frames delivered",
+              flush=True)
+        return
+    fail("(o) capture failure: a host read in a stage did not fail the "
+         "batch's capture")
+
+
+def phase_batch_graphs(tmp, card):
+    """Phase (o): run_batched through one graph a batch, each path against
+    the same calls stepped eagerly; -> {kernel: launches summed over the
+    paths}."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    ramp = [float(v) for v in np.linspace(0.02, 0.3, LFRAMES)]
+    feeds_b = {"appsrc0": nv12_frames(LFRAMES, 3840, 2160, seed=3844)}
+
+    def ramp_b():
+        pipe = fed_pipeline(CHAIN_B, feeds_b, "cuda")
+        pipe["vfmetalvideofilter0"].control("brightness", ramp)
+        return pipe
+
+    xramp = [-100 + 8 * k for k in range(LFRAMES)]
+    feeds_f = {"s0": nv12_frames(LFRAMES, 1920, 1080, seed=72),
+               "s1": rgba_frames(LFRAMES, 1280, 720, seed=73)}
+
+    def ramp_f():
+        pipe = fed_pipeline(CHAIN_F, feeds_f, "cuda")
+        pipe["c"].control("sink_0::xpos", xramp)
+        return pipe
+
+    red = red_png(Path(tmp) / "o-red.png")
+    config5 = {"s0": rgba_frames(FRAMES, 3840, 2160, seed=74),
+               "s1": nv12_frames(FRAMES, 1920, 1080, seed=75),
+               "s2": rgba_frames(FRAMES, 1280, 720, seed=76),
+               "s3": nv12_frames(FRAMES, 1280, 720, seed=77)}
+    lut33 = write_cube(Path(tmp) / "o-grade33.cube", grade_cube(33, seed=35))
+    feeds_c = {"appsrc0": nv12_frames(FRAMES, 1920, 1080, seed=78)}
+    feeds_g = {"appsrc0": i420_moving_block(FRAMES, 1920, 1080, seed=48)}
+    feeds_h = {"appsrc0": rgba_frames(FRAMES, 640, 480, seed=79)}
+    # (label, make, frames a call, calls, kernels, captures, replays):
+    # 16 frames a call are two batches of one key, the first eager on the
+    # first call; a call of 8 is one batch, captured on the second call
+    # (greedy-H's first batch carries has_prev False on frame 0)
+    paths = [
+        ("(o) (b) 4K brightness ramp", ramp_b, LFRAMES, 2,
+         ("K1", "K1b", "K2"), 1, 3),
+        ("(o) (f) sink_0::xpos ramp", ramp_f, LFRAMES, 2,
+         ("K1", "K1b", "K2", "K4"), 1, 3),
+        ("(o) (g) greedy-H, two calls of 8",
+         lambda: fed_pipeline(CONFIG4, feeds_g, "cuda"), FRAMES, 2,
+         (f"K5={2 * FRAMES}", "!K1", "!K1b", "!K2"), 1, 1),
+        ("(o) (e') config 5 -> NV12 4K + overlay (K6)",
+         lambda: fed_pipeline(CONFIG5.format(png=red, fmt="NV12"), config5,
+                              "cuda"), FRAMES, 2,
+         ("K1", "K1b", "K2", "K4", f"K6={2 * FRAMES}"), 1, 1),
+        ("(o) (h) config 2: BGRA 640x480 clockwise, crops",
+         lambda: fed_pipeline("appsrc format=BGRA width=640 height=480 ! "
+                              "vfmetaltransform method=clockwise "
+                              "crop-left=32 crop-top=16 ! appsink",
+                              feeds_h, "cuda"), FRAMES, 2,
+         ("K1", "K1b", "K2"), 1, 1),
+        ("(o) (c) config 3 -> NV12",
+         lambda: fed_pipeline(f"appsrc format=NV12 width=1920 height=1080 ! "
+                              f"{CONFIG3} lut-file={lut33} ! appsink",
+                              feeds_c, "cuda"), FRAMES, 2,
+         ("K1", "K1b", "K2", "K3"), 1, 1),
+    ]
+    for label, make, per, calls, expect, captures, replays in paths:
+        add(batch_path(label, make, per, calls, expect, captures, replays,
+                       card))
+    batch_capture_failure()
+    print(f"[o time] phase (o) took {time.perf_counter() - t0:.1f} s | "
           f"{card}", flush=True)
     return total
 
@@ -2913,6 +3185,7 @@ def main(argv) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_composite({}, tmp)
             phase_compiled(tmp, card)
+            phase_batch_graphs(tmp, card)
         return 0
     if argv:
         fail(f"unknown arguments {argv} (none, --host-steps, --mesh or "
@@ -2936,6 +3209,8 @@ def main(argv) -> int:
         for k, v in phase_mesh(tmp, card).items():
             launches[k] += v
         for k, v in phase_compiled(tmp, card).items():
+            launches[k] += v
+        for k, v in phase_batch_graphs(tmp, card).items():
             launches[k] += v
         phase_oracle(tmp)
     kernels = []

@@ -18,6 +18,7 @@ from tpuvf_torch.core import registry as port_registry
 from tpuvf_torch.core.formats import VideoFormat
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.runtime import benchmark, device
+from tpuvf_torch.runtime.compiled import _ParamRows
 from tpuvf_torch.runtime.staging import ParamStager
 
 torch.set_num_threads(1)
@@ -126,7 +127,8 @@ def test_random_planes_refuses_link_layouts(monkeypatch):
 def test_stager_restages_only_changed_scalars():
     """Unchanged scalars keep their staged tensors; a change stages a new
     vector (the old one is not written in place); other values pass as
-    they are; a batch gives each frame its row of one tensor."""
+    they are; a batch's fixed rows (`_ParamRows`) give each frame its row
+    of one tensor."""
     stager = ParamStager(torch.device("cpu"))
     table = torch.ones(3)
     reads = {"f": ({"a": 0.5, "b": 2.0}, {"lut": table}),
@@ -139,10 +141,13 @@ def test_stager_restages_only_changed_scalars():
     changed = stager.frame({"f": ({"a": 0.25, "b": 2.0}, {}), "c": ({}, {})})
     assert changed["f"]["a"].item() == 0.25 and first["f"]["a"].item() == 0.5
     assert changed["f"]["a"].dtype == torch.float32
-    rows = stager.stage_rows([{"f": ({"a": float(v)}, {})}
-                              for v in np.arange(4) / 8])
+    block = _ParamRows(torch.device("cpu"), 4, [])
+    batch = [{"f": ({"a": float(v)}, {})} for v in np.arange(4) / 8]
+    block.stage(stager, batch, [None] * 4)
+    rows = [block.params(j, r) for j, r in enumerate(batch)]
     assert [r["f"]["a"].item() for r in rows] == [0.0, 0.125, 0.25, 0.375]
     base = rows[0]["f"]["a"]._base
     assert base is not None and base.shape == (4, 1)
     with pytest.raises(ValueError, match="same params"):
-        stager.stage_rows([{"f": ({"a": 0.0}, {})}, {"f": ({"b": 0.0}, {})}])
+        block.stage(stager, [{"f": ({"a": 0.0}, {})},
+                             {"f": ({"b": 0.0}, {})}], [None] * 2)

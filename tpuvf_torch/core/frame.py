@@ -250,14 +250,18 @@ class HostLayout:
         return [self._views(row)
                 for row in flat.to(device, non_blocking=True)]
 
-    def upload_into(self, host_frame, flat: torch.Tensor) -> torch.Tensor:
-        """One host frame -> `flat`, a device buffer of `nbytes` (a
-        compiled step's fixed input): one host copy into a fresh buffer
-        (pinned on a GPU), one non-blocking copy; -> `flat`."""
-        host = torch.empty(self.nbytes, dtype=torch.uint8,
-                           pin_memory=flat.device.type == "cuda")
-        self._fill(host, host_frame)
-        return flat.copy_(host, non_blocking=True)
+    def upload_into(self, host_frames, out: torch.Tensor) -> torch.Tensor:
+        """Host frames -> the rows of `out`, a (len(host_frames), nbytes)
+        device buffer (a compiled step's fixed inputs): one host copy into
+        a fresh buffer (pinned on a GPU), one non-blocking copy; -> `out`."""
+        host = torch.empty((len(host_frames), self.nbytes), dtype=torch.uint8,
+                           pin_memory=out.device.type == "cuda")
+        if out.shape != host.shape or out.dtype != torch.uint8:
+            raise ValueError(f"upload_into: {len(host_frames)} frames into "
+                             f"{tuple(out.shape)} {out.dtype}")
+        for row, host_frame in zip(host, host_frames):
+            self._fill(row, host_frame)
+        return out.copy_(host, non_blocking=True)
 
     def _fill(self, row: torch.Tensor, host_frame) -> None:
         """Copy one host frame's arrays into the flat host buffer `row`."""

@@ -24,7 +24,7 @@ That is a test vehicle: the bands then share one device and buy nothing.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,23 +107,23 @@ def layout(mesh: Mesh, sp_axis: Optional[str],
                   (tuple(sorted(mesh.shape.items())), sp_axis))
 
 
-def run_shards(lay: Layout, batch_size: int, n: int,
-               step: Callable[[int, int], None]) -> None:
-    """One batch over the dp shards (the loop of tpuvf's
-    ``parallel_batch_fn``): shard d takes the batch's frames
-    ``[d*b/dp, (d+1)*b/dp)`` in order, and `step(d, i)` runs frame i on it.
+def shard_frames(lay: Layout, batch_size: int, n: int) -> List[tuple]:
+    """One batch over the dp shards (the split of tpuvf's
+    ``parallel_batch_fn``): -> [(d, the batch's frames shard d takes)],
+    shard d taking ``[d*b/dp, (d+1)*b/dp)`` in order, each shard's frames
+    one sub-batch (one graph a shard, the twin of each shard's local scan).
     A short last batch (n < batch_size) is padded in tpuvf by repeating its
     last frame, with the carried state frozen across the phantom frames and
     their outputs dropped; here the phantom frames are not run, which
-    leaves every shard's state where its last real frame left it.  The
-    shards' steps interleave frame by frame, so shards on different devices
-    run at once."""
+    leaves every shard's state where its last real frame left it, and a
+    shard with no real frame is left out."""
     per = batch_size // lay.dp
-    for j in range(per):
-        for d in range(lay.dp):
-            i = d * per + j
-            if i < n:
-                step(d, i)
+    out = []
+    for d in range(lay.dp):
+        frames = list(range(d * per, min(n, (d + 1) * per)))
+        if frames:
+            out.append((d, frames))
+    return out
 
 
 # -- per-shard, per-band state ------------------------------------------------

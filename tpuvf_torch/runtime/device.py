@@ -16,6 +16,7 @@ vfmetaldevice.m:30-64, 87-93).  The port's counterparts:
 
 from __future__ import annotations
 
+import contextlib
 from pathlib import Path
 
 import torch
@@ -32,6 +33,14 @@ def get_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     return dev
+
+
+def on_device(device):
+    """The CUDA device context of `device` (a no-op for the CPU): kernels
+    and events enqueued inside go to its card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def device_info(device="cuda") -> str:

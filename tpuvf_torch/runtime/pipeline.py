@@ -47,15 +47,19 @@
   index, rebuilds if a write changed the structure, and re-reads every
   element's traced values, staging the scalars on the device only when one
   changed (`runtime/staging.py`), and each compositor's draw table
-  (its prepare pass on the host).  `run_batched` enqueues a batch's steps
-  back to back, its params staged as one (n, k) tensor; `run_live` paces
-  `run` on the output clock and drops late ticks.
-- **The compiled step** (`runtime/compiled.py`): `run`, `run_live` and
-  `run_batched` without a mesh run each frame's step over fixed buffers,
-  on the card as one replay of a CUDA graph captured once per key (tpuvf's
-  one jitted program per variant); `step`/`step_sources` and the mesh path
-  run eagerly.  A fault the fused step cannot name is located by re-running
-  the frame eagerly on fresh state (`_locate_failure`).
+  (its prepare pass on the host).  `run_batched` enqueues a batch as one
+  step, its params staged as one (n, k) block; `run_live` paces `run` on
+  the output clock and drops late ticks.
+- **The compiled step** (`runtime/compiled.py`): `run` and `run_live`
+  run each frame's step over fixed buffers, on the card as one replay of
+  a CUDA graph captured once per key (tpuvf's one jitted program per
+  variant); `run_batched` runs a batch's n steps as one graph (tpuvf's
+  one program a batch, a ``lax.scan``), and on a mesh each dp shard's
+  sub-batch, its bands included, as one graph on its card (each shard's
+  local scan inside tpuvf's ``shard_map``).  `step`/`step_sources` and a
+  shard whose bands lie on several cards run eagerly.  A fault the fused
+  step cannot name is located by re-running the frame (a batch's first)
+  eagerly on fresh state (`_locate_failure`).
 - **Navigation**: a vfvideosink's pointer events route upstream through
   the compositors' hit tests to the source (`_wire_navigation`).
 
@@ -74,7 +78,6 @@ layouts are not ported, nor its sp pad plan, which serves only them.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import time
 from dataclasses import dataclass
@@ -90,7 +93,7 @@ from tpuvf_torch.elements.compositor import DRAW_TABLE
 from tpuvf_torch.parallel import bands as pbands
 from tpuvf_torch.parallel import mesh as pmesh
 from tpuvf_torch.runtime.compiled import CompiledStep
-from tpuvf_torch.runtime.device import get_device
+from tpuvf_torch.runtime.device import get_device, on_device
 from tpuvf_torch.runtime.observability import (  # noqa: F401 - re-exported
     PipelineError,
     PipelineStats,
@@ -123,14 +126,6 @@ class Stage:
 
 def _strip_meta(planes: Dict) -> Dict:
     return {k: v for k, v in planes.items() if k != META}
-
-
-def _on(device):
-    """The CUDA device context of `device` (a no-op for the CPU): kernels
-    and events of a band go to its card."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 def _fans_out(element) -> bool:
@@ -1020,8 +1015,9 @@ class Pipeline:
                 retry = self._eager_retry(selection, reads)
                 compiled.stage(reads, metas)
                 with trace(f"tpuvf_torch.step[{i}]"):
-                    payloads, state = self._compiled_step_or_locate(
-                        compiled, reads, metas, state, i, retry)
+                    payloads, state = self._step_or_locate(
+                        lambda: compiled.step(reads, metas, state, i), i,
+                        retry)
                 self.state = state
                 t3 = clock()
                 # slots in turns by frames run, not by index: a live run
@@ -1035,12 +1031,12 @@ class Pipeline:
             count += 1
         return self._end_run(count, t_run, pending)
 
-    def _compiled_step_or_locate(self, compiled, reads, metas, state,
-                                 index: int, retry):
-        """`CompiledStep.step`; a fault that names no element (a replay's)
-        is located by the frame's eager re-run (`_locate_failure`)."""
+    def _step_or_locate(self, step, index: int, retry):
+        """`step()`, a compiled step; a fault that names no element (a
+        replay's) is located by the eager re-run `retry`
+        (`_locate_failure`) and raised at frame `index`."""
         try:
-            return compiled.step(reads, metas, state, index)
+            return step()
         except PipelineError:
             raise
         except Exception as exc:
@@ -1120,24 +1116,28 @@ class Pipeline:
                     sp_axis: Optional[str] = None,
                     independent_streams: bool = False) -> int:
         """Throughput mode (tpuvf's ``run_batched``, ``tpuvf/runtime/
-        pipeline.py:1916-2198``): `batch_size` frames a batch, their steps
-        enqueued back to back with no host wait.
+        pipeline.py:1916-2198``): `batch_size` frames a batch, enqueued as
+        one step with no host wait.
 
         On entry the controlled elements are synced to frame 0 and a
         property write since the last build rebuilds; the structure then
         stays for the call, and a schedule that changes it raises at the
         first frame where it does.  Per batch: each frame's buffers picked
-        on the output clock, the batch's distinct buffers uploaded with one
-        host copy and one non-blocking copy per source, every frame's
-        params re-read after its controllers' sync and staged as one (n, k)
-        tensor with one copy, each frame reading its row; then the n steps
-        and each frame's readback into buffers of the batch's own (two sets
-        a sink, taken in turns per batch), one event a frame.  Batch b-1 is
-        handed to the sinks while batch b computes.  The carried state runs
-        through the frames in order, across batches and calls, and is
-        `run`'s.  A step failure raises PipelineError at the batch's first
-        frame index, as tpuvf's one dispatch a batch does; a sink failure
-        names its frame.
+        on the output clock and uploaded into its row of the compiled
+        step's fixed inputs for a batch of n, with one host copy and one
+        non-blocking copy per source; every frame's params re-read after
+        its controllers' sync and staged into the fixed (n, k) scalar and
+        (n, T) draw-table rows, one copy each, each frame reading its row;
+        then the batch's n steps as one step (`CompiledStep.step_batch`:
+        on the card one replay of the batch key's CUDA graph, once each
+        frame key has run eagerly) and each frame's readback into buffers
+        of the batch's own (two sets a sink, taken in turns per batch), one
+        event a frame.  Batch b-1 is handed to the sinks while batch b
+        computes.  The carried state runs through the frames in order,
+        across batches and calls, and is `run`'s.  A step failure raises
+        PipelineError at the batch's first frame index, as tpuvf's one
+        dispatch a batch does (a replay's fault located by the first
+        frame's eager re-run); a sink failure names its frame.
 
         With `mesh` (``parallel.mesh.make_mesh``, a 'dp' axis required),
         each batch splits over the dp shards, shard d taking the frames
@@ -1149,9 +1149,12 @@ class Pipeline:
         shards are independent streams.  With `sp_axis` naming a mesh axis
         of size > 1, each frame's rows split into bands over it and the
         stages run in lock-step over the bands (`_step_bands`), after
-        `_validate_sp`; the bands are joined before the sinks.  Bitwise
-        equal to the run without a mesh.  `sp_axis` without a mesh, and
-        `independent_streams` without one, have no effect, as in tpuvf."""
+        `_validate_sp`; the bands are joined before the sinks.  Each
+        shard's sub-batch is one step (`CompiledStep.shard`): one graph
+        replay on its card where its bands lie on one card, eager where
+        they lie on several.  Bitwise equal to the run without a mesh.
+        `sp_axis` without a mesh, and `independent_streams` without one,
+        have no effect, as in tpuvf."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if self._built_signature is None:
@@ -1179,7 +1182,6 @@ class Pipeline:
         while done < num_frames:
             n = min(batch_size, num_frames - done)
             t0 = clock()
-            readbacks, t_step, t_read = [], 0.0, 0.0
             try:
                 rows = []
                 for j in range(n):
@@ -1189,31 +1191,26 @@ class Pipeline:
                               for j in range(n)]
                 metas = [{name: meta for name, (_, meta) in sel.items()}
                          for sel in selections]
-                staged = compiled.stage_batch(rows, metas)
+                compiled.stage_batch(rows, metas)
                 t1 = clock()
-                pieces = self._upload_batch(selections, split=False)
+                self._upload_rows(selections, compiled.batch_inputs(n))
                 t2 = clock()
-                for j in range(n):
-                    ts = clock()
-                    for name, (k, _) in selections[j].items():
-                        compiled.load_inputs(name, pieces[name, k])
-                    compiled.load_staged(staged[j])
-                    retry = self._eager_retry(selections[j], rows[j])
-                    with trace(f"tpuvf_torch.step[{done + j}]"):
-                        payloads, state = self._compiled_step_or_locate(
-                            compiled, rows[j], metas[j], state, done, retry)
-                    self.state = state
-                    tr = clock()
-                    readbacks.append(self._readback(
-                        payloads, done + j, (batch % 2) * batch_size + j,
-                        retry))
-                    t_step += tr - ts
-                    t_read += clock() - tr
+                retries = [self._eager_retry(sel, r)
+                           for sel, r in zip(selections, rows)]
+                with trace(f"tpuvf_torch.batch[{done}]"):
+                    outs, state = self._step_or_locate(
+                        lambda: compiled.step_batch(rows, metas, state, done),
+                        done, retries[0])
+                self.state = state
+                t3 = clock()
+                readbacks = [self._readback(
+                    outs[j], done + j, (batch % 2) * batch_size + j,
+                    retries[j]) for j in range(n)]
             except Exception:
                 self._flush_pending(pending)
                 raise
             pending = self._hand_over(pending, readbacks, t2 - t1,
-                                      (t1 - t0) + t_step, t_read)
+                                      (t1 - t0) + (t3 - t2), clock() - t3)
             done += n
             batch += 1
         return self._end_run(done, t_run, pending)
@@ -1357,7 +1354,7 @@ class Pipeline:
                         outs.append(outs[t])
                         new[s][e.name] = new[t][e.name]
                         continue
-                    with _on(dev):
+                    with on_device(dev):
                         out, new[s][e.name] = self._band_stage(
                             st, [value_of(ln.upstream) for ln in ins], s,
                             plan, states, params[s])
@@ -1447,13 +1444,18 @@ class Pipeline:
                   out_fps, infos, structure) -> int:
         """`run_batched`'s loop on a mesh layout (see its docstring): per
         batch, every frame's params re-read after its controllers' sync and
-        staged on each mesh device (one (n, k) copy a device; the rows
-        split over dp, each shard's bands reading its frames' rows), each
-        shard's distinct buffers uploaded to its first device, then the
-        shards' frames (`parallel.mesh.run_shards`) through `_step_bands`
-        and their readbacks from the shard's first device."""
+        staged on each mesh card (`CompiledStep.param_rows`: one (n, k) and
+        one (n, T) copy a card, each shard's bands reading their frames'
+        rows), each shard's frames uploaded to its fixed input rows on its
+        first card, then each shard's sub-batch through `_step_bands` in
+        one step (`CompiledStep.shard`, one graph replay where its bands
+        lie on one card) and its readbacks from that card.  A replay's
+        fault is located by the batch's first frame re-run eagerly on the
+        pipeline's device."""
         replicated = self._sp_replicated if lay.sp > 1 else frozenset()
-        plans = [self._shard_plan(devs) for devs in lay.devices]
+        compiled = self.compiled
+        shards = [compiled.shard(lay, d, self._shard_plan(devs))
+                  for d, devs in enumerate(lay.devices)]
         held = self._mesh_state
         if held is not None and held[0] == lay.key:
             states = held[1]
@@ -1462,7 +1464,6 @@ class Pipeline:
         devices = list(dict.fromkeys(d for devs in lay.devices for d in devs))
         for dev in devices:
             self._mesh_stagers.setdefault(dev, ParamStager(dev))
-        per = batch_size // lay.dp
         pending: List[tuple] = []
         done = batch = 0
         clock = time.perf_counter
@@ -1470,56 +1471,55 @@ class Pipeline:
         while done < num_frames:
             n = min(batch_size, num_frames - done)
             t0 = clock()
-            readbacks: Dict[int, tuple] = {}
-            t_step = [0.0, 0.0]
+            readbacks = []
+            t_step = t_read = 0.0
             try:
                 rows = []
                 for j in range(n):
                     self._ctl_sync(done + j, structure)
                     rows.append({dev: read_params(self._active(), dev)
                                  for dev in devices})
+                    if j == 0:  # the eager re-run's, on the pipeline's device
+                        first = read_params(self._active(), self.device)
                 selections = [self._select_buffers(done + j, out_fps, infos)
                               for j in range(n)]
-                tables = [self._frame_tables(
-                    rows[j][devices[0]],
-                    {name: meta for name, (_, meta) in sel.items()})
-                    for j, sel in enumerate(selections)]
+                metas = [{name: meta for name, (_, meta) in sel.items()}
+                         for sel in selections]
+                tables = [self._frame_tables(rows[j][devices[0]], metas[j])
+                          for j in range(n)]
                 params = {}
                 for dev in devices:
-                    with _on(dev):  # the stager's event on its card
-                        params[dev] = self._stage_mesh_rows(
-                            self._mesh_stagers[dev], [r[dev] for r in rows],
-                            tables)
+                    params[dev] = compiled.param_rows(dev, n)
+                    with on_device(dev):  # the stager's event on its card
+                        params[dev].stage(self._mesh_stagers[dev],
+                                          [r[dev] for r in rows], tables)
                 t1 = clock()
-                planes = [self._upload_batch(
-                    selections[d * per:min(n, (d + 1) * per)], devs[0])
-                    for d, devs in enumerate(lay.devices)]
+                parts = pmesh.shard_frames(lay, batch_size, n)
+                for d, frames in parts:
+                    self._upload_rows([selections[j] for j in frames],
+                                      shards[d].inputs(len(frames)))
                 t2 = clock()
-
-                def step(d, j):
-                    devs = lay.devices[d]
+                retry = self._eager_retry(selections[0], first)
+                for d, frames in parts:
                     ts = clock()
-                    inputs = {name: self._source_bands(
-                        name, planes[d][name, k], meta, devs)
-                        for name, (k, meta) in selections[j].items()}
-                    with trace(f"tpuvf_torch.step[{done + j}]"):
-                        out, states[d] = self._step_bands(
-                            plans[d], inputs, states[d],
-                            [params[dev][j] for dev in devs], done)
-                    tr = clock()
-                    with _on(devs[0]):
-                        readbacks[j] = self._enqueue_readback(
-                            out, done + j, (batch % 2) * batch_size + j)
-                    t_step[0] += tr - ts
-                    t_step[1] += clock() - tr
-
-                pmesh.run_shards(lay, batch_size, n, step)
+                    with trace(f"tpuvf_torch.shard[{done}, {d}]"), \
+                            on_device(lay.devices[d][0]):
+                        outs, states[d] = self._step_or_locate(
+                            lambda: shards[d].step(frames, metas, rows,
+                                                   params, states[d], done),
+                            done, retry)
+                        tr = clock()
+                        readbacks += [self._readback(
+                            payloads, done + j,
+                            (batch % 2) * batch_size + j)
+                            for j, payloads in zip(frames, outs)]
+                    t_step += tr - ts
+                    t_read += clock() - tr
             except Exception:
                 self._flush_pending(pending)
                 raise
-            pending = self._hand_over(
-                pending, [readbacks[j] for j in sorted(readbacks)], t2 - t1,
-                (t1 - t0) + t_step[0], t_step[1])
+            pending = self._hand_over(pending, readbacks, t2 - t1,
+                                      (t1 - t0) + t_step, t_read)
             done += n
             batch += 1
         self._mesh_state = (lay.key, states)
@@ -1533,45 +1533,22 @@ class Pipeline:
                 torch.cuda.synchronize(dev)
         return self._end_run(done, t_run, pending)
 
-    def _stage_mesh_rows(self, stager: ParamStager, rows, tables) -> list:
-        """A batch's params on one mesh device: the scalars as one (n, k)
-        copy, the draw tables (`_frame_tables`, one a frame) as one (n, T)
-        copy, each frame's compositors reading their table's row."""
-        params = stager.stage_rows(rows)
-        layout = self._table_layout()
-        if layout:
-            flat = stager.table_rows(tables)
-            for j, prm in enumerate(params):
-                for st, offset, size in layout:
-                    name = st.element.name
-                    prm[name] = dict(prm[name], **{
-                        DRAW_TABLE: flat[j, offset:offset + size]})
-        return params
-
-    def _upload_batch(self, selections, device=None,
-                      split: bool = True) -> Dict[tuple, Dict]:
-        """{(source name, buffer index): device planes} for the distinct
-        buffers a batch's `_select_buffers` picked: per source, one host
-        copy into one buffer and one non-blocking copy
-        (`HostLayout.upload_many`) to `device` (the pipeline's by
-        default).  Without `split`, each buffer's host-layout pieces."""
-        device = self.device if device is None else device
-        wanted: Dict[str, List[int]] = {}
-        for sel in selections:
-            for name, (j, _) in sel.items():
-                idx = wanted.setdefault(name, [])
-                if j not in idx:
-                    idx.append(j)
-        out = {}
-        for name, idx in wanted.items():
+    def _upload_rows(self, selections, inputs: Dict[str, torch.Tensor]):
+        """Each frame's picked buffers (`_select_buffers`, one a frame) ->
+        its row of the fixed inputs `inputs` ({source name: (n, nbytes)
+        device buffer}, a compiled step's): per source one host copy and
+        one non-blocking copy (`HostLayout.upload_into`); a buffer that
+        several frames pick is generated once."""
+        for name, flat in inputs.items():
             src = self[name]
             spec = self._source_spec(src)
-            hosts = [src.generate(j, spec) for j in idx]
-            for j, pieces in zip(idx, HostLayout(spec).upload_many(
-                    hosts, device)):
-                out[name, j] = (from_host_layout(pieces, spec) if split
-                                else pieces)
-        return out
+            hosts = {}
+            for sel in selections:
+                j = sel[name][0]
+                if j not in hosts:
+                    hosts[j] = src.generate(j, spec)
+            HostLayout(spec).upload_into(
+                [hosts[sel[name][0]] for sel in selections], flat)
 
     def _ring_buffer(self, sink, layout: HostLayout, slot: int):
         """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  `run`
@@ -1620,10 +1597,6 @@ class Pipeline:
             event = torch.cuda.Event()
             event.record()
         return index, copies, event, retry
-
-    def _enqueue_readback(self, out, index: int, slot: int):
-        """`_payloads` and `_readback` of an eager step's output."""
-        return self._readback(self._payloads(out, index), index, slot)
 
     def _deliver(self, index: int, copies, event, retry=None) -> None:
         """Wait on frame `index`'s event, then run each sink's host codec

@@ -17,14 +17,14 @@ a pageable, blocking copy each).  The pinned buffers are taken in turns,
 and a buffer is written again only after the copy that read it has run
 (an event recorded behind the copy).  A staged vector is never written in
 place: a changed frame gets a new one, so a queued step keeps reading its
-own values.  A batch (`stage_rows`) stacks its frames' scalars into one
-(n, k) buffer with one copy, and each frame reads its row.
+own values.
 
 The compositor's draw tables (int32, ``kernels/composite.py``) travel the
-same way (`table`, `table_rows`), through pinned buffers of their own.
-The compiled step (`runtime/compiled.py`) stages a frame's scalars and
-tables into its fixed device buffers instead (`put`): those are written in
-place, in stream order, behind the replays that read them before.
+same way (`table`), through pinned buffers of their own.  The compiled
+step (`runtime/compiled.py`) stages a frame's or a batch's scalars and
+tables into its fixed device rows instead (`put` into them): those are
+written in place, in stream order, behind the replays that read them
+before.
 """
 
 from __future__ import annotations
@@ -81,26 +81,9 @@ class ParamStager:
             self._last = (keys, values)
         return self._assemble(reads, self._views)
 
-    def stage_rows(self, rows: List[Reads]) -> List[Dict[str, Dict]]:
-        """A batch's params, one dict a frame, from one (n, k) copy; every
-        row must have the same keys."""
-        layouts = [self._layout(r) for r in rows]
-        if any(keys != layouts[0][0] for keys, _ in layouts):
-            raise ValueError("a batch's frames must stage the same params")
-        values = [v for _, v in layouts]
-        if not values[0]:
-            return [self._assemble(r, ()) for r in rows]
-        staged = self._stage(values)
-        return [self._assemble(r, list(staged[j])) for j, r in enumerate(rows)]
-
     def table(self, table: np.ndarray) -> torch.Tensor:
         """A draw table (int32) -> a new tensor on the device."""
         return self.put(torch.from_numpy(table))
-
-    def table_rows(self, tables: List[np.ndarray]) -> torch.Tensor:
-        """A batch's tables, one a frame, -> one (n, T) int32 device tensor
-        from one copy."""
-        return self.put(torch.from_numpy(np.stack(tables)))
 
     def _stage(self, values: List[tuple]) -> torch.Tensor:
         """(n, k) host values -> a new (n, k) float32 tensor on the device."""
