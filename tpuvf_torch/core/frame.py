@@ -42,6 +42,7 @@ from tpuvf_torch.core.formats import (
     chroma_dims_422,
 )
 from tpuvf_torch.core.spec import FrameSpec
+from tpuvf_torch.runtime.observability import trace
 
 # channel permutation mapping host byte order -> canonical R,G,B,A
 _RGB_PERMS = {VideoFormat.RGBA: (0, 1, 2, 3), VideoFormat.BGRA: (2, 1, 0, 3)}
@@ -242,26 +243,46 @@ class HostLayout:
     def upload_many(self, host_frames, device) -> List[List[torch.Tensor]]:
         """Host frames -> each frame's pieces on `device`: one host copy
         into a fresh buffer for all of them (pinned on a GPU), one copy to
-        the device, non-blocking, then views of it."""
-        flat = torch.empty((len(host_frames), self.nbytes), dtype=torch.uint8,
-                           pin_memory=device.type == "cuda")
-        for row, host_frame in zip(flat, host_frames):
-            self._fill(row, host_frame)
-        return [self._views(row)
-                for row in flat.to(device, non_blocking=True)]
+        the device, non-blocking, then views of it.  Each part is a span
+        (`_alloc`, `_fill_rows`, ``tpuvf_torch.upload.copy``), seen by a
+        profiler only: no run loop calls this."""
+        flat = self._alloc(len(host_frames), device)
+        self._fill_rows(flat, host_frames)
+        with trace("tpuvf_torch.upload.copy"):
+            rows = flat.to(device, non_blocking=True)
+        return [self._views(row) for row in rows]
 
-    def upload_into(self, host_frames, out: torch.Tensor) -> torch.Tensor:
+    def upload_into(self, host_frames, out: torch.Tensor, edge=None,
+                    index=None) -> torch.Tensor:
         """Host frames -> the rows of `out`, a (len(host_frames), nbytes)
         device buffer (a compiled step's fixed inputs): one host copy into
-        a fresh buffer (pinned on a GPU), one non-blocking copy; -> `out`."""
-        host = torch.empty((len(host_frames), self.nbytes), dtype=torch.uint8,
-                           pin_memory=out.device.type == "cuda")
+        a fresh buffer (pinned on a GPU), one non-blocking copy; -> `out`.
+        Each part is a span (`_alloc`, `_fill_rows`,
+        ``tpuvf_torch.upload.copy``) adding to `edge`, a
+        `PipelineStats.edge_seconds`, where given; `index` rides in the
+        spans' profiler args."""
+        host = self._alloc(len(host_frames), out.device, edge, index)
         if out.shape != host.shape or out.dtype != torch.uint8:
             raise ValueError(f"upload_into: {len(host_frames)} frames into "
                              f"{tuple(out.shape)} {out.dtype}")
-        for row, host_frame in zip(host, host_frames):
-            self._fill(row, host_frame)
-        return out.copy_(host, non_blocking=True)
+        self._fill_rows(host, host_frames, edge, index)
+        with trace("tpuvf_torch.upload.copy", edge, index):
+            return out.copy_(host, non_blocking=True)
+
+    def _alloc(self, n: int, device, edge=None, index=None) -> torch.Tensor:
+        """A fresh (n, nbytes) host buffer, pinned for a GPU `device` (span
+        ``tpuvf_torch.upload.alloc``)."""
+        with trace("tpuvf_torch.upload.alloc", edge, index):
+            return torch.empty((n, self.nbytes), dtype=torch.uint8,
+                               pin_memory=device.type == "cuda")
+
+    def _fill_rows(self, host: torch.Tensor, host_frames, edge=None,
+                   index=None) -> None:
+        """Each host frame into its row of `host` (span
+        ``tpuvf_torch.upload.fill``)."""
+        with trace("tpuvf_torch.upload.fill", edge, index):
+            for row, host_frame in zip(host, host_frames):
+                self._fill(row, host_frame)
 
     def _fill(self, row: torch.Tensor, host_frame) -> None:
         """Copy one host frame's arrays into the flat host buffer `row`."""

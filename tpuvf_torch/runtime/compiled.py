@@ -372,9 +372,11 @@ class CompiledStep:
             self._rows[n] = _input_rows(self._layouts, self.device, n)
         return self._rows[n][0]
 
-    def upload(self, name: str, host_frame) -> None:
-        """Source `name`'s host frame -> its fixed input (a frame's)."""
-        self._layouts[name].upload_into([host_frame], self._inputs[name])
+    def upload(self, name: str, host_frame, index=None) -> None:
+        """Source `name`'s host frame -> its fixed input (a frame's); its
+        spans add to the pipeline's `edge_seconds`, `index` in their args."""
+        self._layouts[name].upload_into([host_frame], self._inputs[name],
+                                        self.pipe.stats.edge_seconds, index)
 
     # -- params ---------------------------------------------------------------
 

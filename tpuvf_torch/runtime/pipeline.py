@@ -989,45 +989,46 @@ class Pipeline:
         uploaded = {}  # source name -> buffer index in its fixed input
         pending = []  # frame i-1's readback, delivered after frame i's step
         count = 0
-        clock = time.perf_counter
-        t_run = clock()
+        edge = self.stats.edge_seconds
+        t_run = time.perf_counter()
         for i in indices:
-            t0 = clock()
-            for el in controlled:
-                el.sync_frame(i)
-            self.state = state  # a rebuild merges the current carry
-            if self._maybe_rebuild():
-                state = self.state
-                compiled = self.compiled
-                uploaded.clear()
-            t1 = clock()
+            with trace("tpuvf_torch.params", edge, i):
+                for el in controlled:
+                    el.sync_frame(i)
+                self.state = state  # a rebuild merges the current carry
+                if self._maybe_rebuild():
+                    state = self.state
+                    compiled = self.compiled
+                    uploaded.clear()
             try:
-                selection = self._select_buffers(i, out_fps, infos)
-                for name, (j, _) in selection.items():
-                    if uploaded.get(name) != j:  # a repeat keeps its bytes
-                        src = self[name]
-                        compiled.upload(name, src.generate(
-                            j, self._source_spec(src)))
-                        uploaded[name] = j
-                t2 = clock()
-                reads = read_params(self._active(), self.device)
-                metas = {name: meta for name, (_, meta) in selection.items()}
-                retry = self._eager_retry(selection, reads)
-                compiled.stage(reads, metas)
-                with trace(f"tpuvf_torch.step[{i}]"):
+                with trace("tpuvf_torch.params", edge, i):
+                    selection = self._select_buffers(i, out_fps, infos)
+                    reads = read_params(self._active(), self.device)
+                    metas = {name: meta
+                             for name, (_, meta) in selection.items()}
+                    compiled.stage(reads, metas)
+                    retry = self._eager_retry(selection, reads)
+                with trace("tpuvf_torch.upload", edge, i):
+                    for name, (j, _) in selection.items():
+                        if uploaded.get(name) != j:  # a repeat keeps its bytes
+                            src = self[name]
+                            with trace("tpuvf_torch.upload.source", edge, i):
+                                host = src.generate(j, self._source_spec(src))
+                            compiled.upload(name, host, i)
+                            uploaded[name] = j
+                with trace("tpuvf_torch.enqueue", edge, i):
                     payloads, state = self._step_or_locate(
                         lambda: compiled.step(reads, metas, state, i), i,
                         retry)
                 self.state = state
-                t3 = clock()
                 # slots in turns by frames run, not by index: a live run
                 # skips indices
-                readback = self._readback(payloads, i, count % 2, retry)
+                with trace("tpuvf_torch.readback", edge, i):
+                    readback = self._readback(payloads, i, count % 2, retry)
             except Exception:
                 self._flush_pending(pending)
                 raise
-            pending = self._hand_over(pending, [readback], t2 - t1,
-                                      (t1 - t0) + (t3 - t2), clock() - t3)
+            pending = self._hand_over(pending, [readback])
             count += 1
         return self._end_run(count, t_run, pending)
 
@@ -1083,17 +1084,13 @@ class Pipeline:
                 pass
         return PipelineError("<pipeline>", index, exc)
 
-    def _hand_over(self, pending, readbacks, upload: float, step: float,
-                   readback: float) -> list:
+    def _hand_over(self, pending, readbacks) -> list:
         """The loops' common end of a frame (`run`) or a batch
-        (`run_batched`), once its readbacks are enqueued: add its host
-        seconds to `stats.edge_seconds`, then hand the frames enqueued one
-        frame or batch earlier to their sinks.  -> `readbacks`, the new
-        pending frames."""
-        edge = self.stats.edge_seconds
-        edge["upload"] += upload
-        edge["step"] += step
-        edge["readback"] += readback
+        (`run_batched`), once its readbacks are enqueued: hand the frames
+        enqueued one frame or batch earlier to their sinks (`_deliver`,
+        whose spans ``tpuvf_torch.wait`` and ``tpuvf_torch.consume`` add to
+        `stats.edge_seconds` as the loops' spans before it do).  ->
+        `readbacks`, the new pending frames."""
         for rb in pending:
             self._deliver(*rb)
         return readbacks
@@ -1177,40 +1174,40 @@ class Pipeline:
         compiled = self.compiled
         pending: List[tuple] = []
         done = batch = 0
-        clock = time.perf_counter
-        t_run = clock()
+        edge = self.stats.edge_seconds
+        t_run = time.perf_counter()
         while done < num_frames:
             n = min(batch_size, num_frames - done)
-            t0 = clock()
             try:
-                rows = []
-                for j in range(n):
-                    self._ctl_sync(done + j, structure)
-                    rows.append(read_params(self._active(), self.device))
-                selections = [self._select_buffers(done + j, out_fps, infos)
-                              for j in range(n)]
-                metas = [{name: meta for name, (_, meta) in sel.items()}
-                         for sel in selections]
-                compiled.stage_batch(rows, metas)
-                t1 = clock()
-                self._upload_rows(selections, compiled.batch_inputs(n))
-                t2 = clock()
-                retries = [self._eager_retry(sel, r)
-                           for sel, r in zip(selections, rows)]
-                with trace(f"tpuvf_torch.batch[{done}]"):
+                with trace("tpuvf_torch.params", edge, done):
+                    rows = []
+                    for j in range(n):
+                        self._ctl_sync(done + j, structure)
+                        rows.append(read_params(self._active(), self.device))
+                    selections = [self._select_buffers(done + j, out_fps,
+                                                       infos)
+                                  for j in range(n)]
+                    metas = [{name: meta for name, (_, meta) in sel.items()}
+                             for sel in selections]
+                    compiled.stage_batch(rows, metas)
+                    retries = [self._eager_retry(sel, r)
+                               for sel, r in zip(selections, rows)]
+                with trace("tpuvf_torch.upload", edge, done):
+                    self._upload_rows(selections, compiled.batch_inputs(n),
+                                      done)
+                with trace("tpuvf_torch.enqueue", edge, done):
                     outs, state = self._step_or_locate(
                         lambda: compiled.step_batch(rows, metas, state, done),
                         done, retries[0])
                 self.state = state
-                t3 = clock()
-                readbacks = [self._readback(
-                    outs[j], done + j, (batch % 2) * batch_size + j,
-                    retries[j]) for j in range(n)]
+                with trace("tpuvf_torch.readback", edge, done):
+                    readbacks = [self._readback(
+                        outs[j], done + j, (batch % 2) * batch_size + j,
+                        retries[j]) for j in range(n)]
             except Exception:
                 self._flush_pending(pending)
                 raise
-            pending = self._hand_over(pending, readbacks, t2 - t1,
-                                      (t1 - t0) + (t3 - t2), clock() - t3)
+            pending = self._hand_over(pending, readbacks)
             done += n
             batch += 1
         return self._end_run(done, t_run, pending)
@@ -1466,60 +1463,56 @@ class Pipeline:
             self._mesh_stagers.setdefault(dev, ParamStager(dev))
         pending: List[tuple] = []
         done = batch = 0
-        clock = time.perf_counter
-        t_run = clock()
+        edge = self.stats.edge_seconds
+        t_run = time.perf_counter()
         while done < num_frames:
             n = min(batch_size, num_frames - done)
-            t0 = clock()
             readbacks = []
-            t_step = t_read = 0.0
             try:
-                rows = []
-                for j in range(n):
-                    self._ctl_sync(done + j, structure)
-                    rows.append({dev: read_params(self._active(), dev)
-                                 for dev in devices})
-                    if j == 0:  # the eager re-run's, on the pipeline's device
-                        first = read_params(self._active(), self.device)
-                selections = [self._select_buffers(done + j, out_fps, infos)
-                              for j in range(n)]
-                metas = [{name: meta for name, (_, meta) in sel.items()}
-                         for sel in selections]
-                tables = [self._frame_tables(rows[j][devices[0]], metas[j])
-                          for j in range(n)]
-                params = {}
-                for dev in devices:
-                    params[dev] = compiled.param_rows(dev, n)
-                    with on_device(dev):  # the stager's event on its card
-                        params[dev].stage(self._mesh_stagers[dev],
-                                          [r[dev] for r in rows], tables)
-                t1 = clock()
+                with trace("tpuvf_torch.params", edge, done):
+                    rows = []
+                    for j in range(n):
+                        self._ctl_sync(done + j, structure)
+                        rows.append({dev: read_params(self._active(), dev)
+                                     for dev in devices})
+                        if j == 0:  # the eager re-run's, on the pipeline's
+                            first = read_params(self._active(), self.device)
+                    selections = [self._select_buffers(done + j, out_fps,
+                                                       infos)
+                                  for j in range(n)]
+                    metas = [{name: meta for name, (_, meta) in sel.items()}
+                             for sel in selections]
+                    tables = [self._frame_tables(rows[j][devices[0]],
+                                                 metas[j]) for j in range(n)]
+                    params = {}
+                    for dev in devices:
+                        params[dev] = compiled.param_rows(dev, n)
+                        with on_device(dev):  # the stager's event on its card
+                            params[dev].stage(self._mesh_stagers[dev],
+                                              [r[dev] for r in rows], tables)
+                    retry = self._eager_retry(selections[0], first)
                 parts = pmesh.shard_frames(lay, batch_size, n)
+                with trace("tpuvf_torch.upload", edge, done):
+                    for d, frames in parts:
+                        self._upload_rows([selections[j] for j in frames],
+                                          shards[d].inputs(len(frames)), done)
                 for d, frames in parts:
-                    self._upload_rows([selections[j] for j in frames],
-                                      shards[d].inputs(len(frames)))
-                t2 = clock()
-                retry = self._eager_retry(selections[0], first)
-                for d, frames in parts:
-                    ts = clock()
-                    with trace(f"tpuvf_torch.shard[{done}, {d}]"), \
-                            on_device(lay.devices[d][0]):
-                        outs, states[d] = self._step_or_locate(
-                            lambda: shards[d].step(frames, metas, rows,
-                                                   params, states[d], done),
-                            done, retry)
-                        tr = clock()
-                        readbacks += [self._readback(
-                            payloads, done + j,
-                            (batch % 2) * batch_size + j)
-                            for j, payloads in zip(frames, outs)]
-                    t_step += tr - ts
-                    t_read += clock() - tr
+                    with on_device(lay.devices[d][0]):
+                        with trace("tpuvf_torch.enqueue", edge, (done, d)):
+                            outs, states[d] = self._step_or_locate(
+                                lambda: shards[d].step(frames, metas, rows,
+                                                       params, states[d],
+                                                       done),
+                                done, retry)
+                        with trace("tpuvf_torch.readback", edge, (done, d)):
+                            readbacks += [self._readback(
+                                payloads, done + j,
+                                (batch % 2) * batch_size + j)
+                                for j, payloads in zip(frames, outs)]
             except Exception:
                 self._flush_pending(pending)
                 raise
-            pending = self._hand_over(pending, readbacks, t2 - t1,
-                                      (t1 - t0) + t_step, t_read)
+            pending = self._hand_over(pending, readbacks)
             done += n
             batch += 1
         self._mesh_state = (lay.key, states)
@@ -1533,22 +1526,28 @@ class Pipeline:
                 torch.cuda.synchronize(dev)
         return self._end_run(done, t_run, pending)
 
-    def _upload_rows(self, selections, inputs: Dict[str, torch.Tensor]):
+    def _upload_rows(self, selections, inputs: Dict[str, torch.Tensor],
+                     index: int):
         """Each frame's picked buffers (`_select_buffers`, one a frame) ->
         its row of the fixed inputs `inputs` ({source name: (n, nbytes)
         device buffer}, a compiled step's): per source one host copy and
         one non-blocking copy (`HostLayout.upload_into`); a buffer that
-        several frames pick is generated once."""
+        several frames pick is generated once (span
+        ``tpuvf_torch.upload.source``).  `index`, the batch's first frame,
+        rides in the spans' args."""
+        edge = self.stats.edge_seconds
         for name, flat in inputs.items():
             src = self[name]
             spec = self._source_spec(src)
             hosts = {}
-            for sel in selections:
-                j = sel[name][0]
-                if j not in hosts:
-                    hosts[j] = src.generate(j, spec)
+            with trace("tpuvf_torch.upload.source", edge, index):
+                for sel in selections:
+                    j = sel[name][0]
+                    if j not in hosts:
+                        hosts[j] = src.generate(j, spec)
             HostLayout(spec).upload_into(
-                [hosts[sel[name][0]] for sel in selections], flat)
+                [hosts[sel[name][0]] for sel in selections], flat, edge,
+                index)
 
     def _ring_buffer(self, sink, layout: HostLayout, slot: int):
         """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  `run`
@@ -1584,7 +1583,8 @@ class Pipeline:
         """`_payloads` -> (index, [(sink, layout, host buffer)], event,
         retry): the non-blocking copies into each sink's readback buffer
         `slot`, then one event recorded after them (None on the CPU);
-        `retry` re-runs the frame eagerly should its wait fail."""
+        `retry` re-runs the frame eagerly should its wait fail.  The loops
+        call it inside their span ``tpuvf_torch.readback``."""
         copies = []
         for sink, layout, pieces in payloads:
             try:
@@ -1604,30 +1604,29 @@ class Pipeline:
         ``tpuvf/runtime/pipeline.py:1893-1914``), naming the sink whose
         consume or codec failed.  A device fault that surfaces at the wait
         is located by the frame's eager re-run (`_locate_failure`), or
-        names "<pipeline>"."""
+        names "<pipeline>".  Spans ``tpuvf_torch.wait`` (the event, empty
+        on the CPU) and ``tpuvf_torch.consume``."""
         edge = self.stats.edge_seconds
-        t0 = time.perf_counter()
-        if event is not None:
-            try:
-                event.synchronize()
-            except Exception as exc:
-                raise self._locate_failure(index, exc, retry) from exc
-        t1 = time.perf_counter()
-        for sink, layout, flat in copies:
-            try:
-                codecs = self._codec_chain.get(sink.name, ())
-                # the buffer is reused: a sink that keeps its frames gets
-                # arrays of its own (a codec makes new bytes)
-                payload = layout.payload(
-                    flat, copy=sink.KEEPS_PAYLOAD and not codecs)
-                spec = layout.spec
-                for codec in codecs:
-                    payload = codec.encode(payload, spec)
-                sink.deliver(payload, spec, index)
-            except Exception as exc:
-                raise PipelineError(sink.name, index, exc) from exc
-        edge["wait"] += t1 - t0
-        edge["consume"] += time.perf_counter() - t1
+        with trace("tpuvf_torch.wait", edge, index):
+            if event is not None:
+                try:
+                    event.synchronize()
+                except Exception as exc:
+                    raise self._locate_failure(index, exc, retry) from exc
+        with trace("tpuvf_torch.consume", edge, index):
+            for sink, layout, flat in copies:
+                try:
+                    codecs = self._codec_chain.get(sink.name, ())
+                    # the buffer is reused: a sink that keeps its frames
+                    # gets arrays of its own (a codec makes new bytes)
+                    payload = layout.payload(
+                        flat, copy=sink.KEEPS_PAYLOAD and not codecs)
+                    spec = layout.spec
+                    for codec in codecs:
+                        payload = codec.encode(payload, spec)
+                    sink.deliver(payload, spec, index)
+                except Exception as exc:
+                    raise PipelineError(sink.name, index, exc) from exc
 
     def _flush_pending(self, pending) -> None:
         """Best-effort delivery of the deferred frames (the previous frame,
