@@ -6,10 +6,13 @@ with no index in its name: its host-clock seconds add to
 active is it also a ``record_function`` range, the frame or batch index in
 its ``args``.  Here `run`, `run_batched` and a dp=2 `run_batched` on a CPU
 mesh run under torch.profiler (CPU activity): every span of the table
-appears, the ``upload.*`` parts inside ``tpuvf_torch.upload``, each name's
-profiler time beside its `edge_seconds` delta; with no profiler no
-``record_function`` is entered.  The four benchmark readers that read the
-spans (``vfbench/metrics``) run on a made-up context.
+appears but ``params.tables`` (the chain has no compositor, so its
+`edge_seconds` stay 0; ``tests/test_torch_comp4k.py`` drives a compositor),
+the ``upload.*`` parts inside ``tpuvf_torch.upload`` and ``params.select``
+inside ``tpuvf_torch.params``, each name's profiler time beside its
+`edge_seconds` delta; with no profiler no ``record_function`` is entered.
+The four benchmark readers that read the spans (``vfbench/metrics``) run on
+a made-up context.
 """
 
 import logging
@@ -34,8 +37,11 @@ DESC = ("videotestsrc num-buffers=8 pattern=ball ! "
         "video/x-raw,format=BGRA,width=40,height=24 ! "
         "vfmetalvideofilter brightness=0.1 contrast=1.1 ! fakesink")
 PREFIX = "tpuvf_torch."
-SPANS = tuple(PREFIX + k for k in EDGE_PARTS if k != "step")
+TABLES = PREFIX + "params.tables"  # a compositor's: none in DESC
+SPANS = tuple(PREFIX + k for k in EDGE_PARTS
+              if k != "step" and PREFIX + k != TABLES)
 UPLOAD_PARTS = tuple(s for s in SPANS if s.startswith(PREFIX + "upload."))
+PARAMS_PARTS = (PREFIX + "params.select",)
 LOOPS = ("run", "run_batched", "mesh")
 
 
@@ -87,10 +93,11 @@ def test_every_span_appears_unindexed_and_nested(loop, monkeypatch):
     spans, calls, _ = _traced(loop, monkeypatch)
     assert {name for name, _, _ in spans} == set(SPANS)
     assert {name for name, _ in calls} == set(SPANS)
-    uploads = [(a, b) for name, a, b in spans if name == PREFIX + "upload"]
-    for name, a, b in spans:
-        if name in UPLOAD_PARTS:
-            assert any(ua <= a and b <= ub for ua, ub in uploads), name
+    for parts, outer in ((UPLOAD_PARTS, "upload"), (PARAMS_PARTS, "params")):
+        outers = [(a, b) for name, a, b in spans if name == PREFIX + outer]
+        for name, a, b in spans:
+            if name in parts:
+                assert any(oa <= a and b <= ob for oa, ob in outers), name
 
 
 @pytest.mark.parametrize("loop", LOOPS)
@@ -101,7 +108,7 @@ def test_the_index_rides_in_args(loop, monkeypatch):
         assert arg is not None, name
         args.setdefault(name[len(PREFIX):], set()).add(arg)
     frames = {str(i) for i in range(8)}
-    for part in ("wait", "consume"):
+    for part in ("wait", "consume", "params.select"):
         assert args[part] == frames
     if loop == "run":
         assert args["enqueue"] == args["params"] == args["readback"] == frames
@@ -127,6 +134,8 @@ def test_edge_seconds_are_the_spans_durations(loop, monkeypatch):
     assert edge["step"] == pytest.approx(edge["params"] + edge["enqueue"],
                                          rel=1e-9)
     assert edge["upload"] >= sum(edge[p[len(PREFIX):]] for p in UPLOAD_PARTS)
+    assert edge["params"] >= edge["params.select"]
+    assert edge["params.tables"] == 0
 
 
 @pytest.mark.parametrize("loop", LOOPS)
@@ -143,7 +152,8 @@ def test_no_record_function_without_a_profiler(loop, monkeypatch):
     assert calls == []
     edge = pipe.stats.edge_seconds
     assert set(edge) == set(EDGE_PARTS)
-    assert all(edge[k] > 0 for k in EDGE_PARTS)
+    assert all(edge[k] > 0 for k in EDGE_PARTS if k != "params.tables")
+    assert edge["params.tables"] == 0
     assert edge["step"] == pytest.approx(edge["params"] + edge["enqueue"],
                                          rel=1e-9)
 

@@ -220,6 +220,36 @@ def test_registered_memory_is_capped_in_all():
         HostRegistry.CAP_FRAMES * HostLayout(NV12).nbytes)
 
 
+def test_four_sources_share_one_budget(monkeypatch):
+    """BASELINE config 5's four sources at a twentieth of their sizes (the
+    same byte ratios: 4K BGRA, 1080p NV12, 720p BGRA, 720p NV12), 8-frame
+    pools, six batches uploaded as `run_batched` uploads them, source by
+    source through a layout of its own: each pool registered once, at the
+    second batch, none unregistered and the device never synchronised, so a
+    small source's admission does not evict the 4K pool."""
+    reg, fake = registry()
+    syncs = []
+    monkeypatch.setattr(reg, "_sync", lambda: syncs.append(1))
+    specs = [FrameSpec(VideoFormat.BGRA, 192, 108),
+             FrameSpec(VideoFormat.NV12, 96, 54),
+             FrameSpec(VideoFormat.BGRA, 64, 36),
+             FrameSpec(VideoFormat.NV12, 64, 36)]
+    layouts = [HostLayout(s) for s in specs]
+    pools = [pool(s, 8, seed) for seed, s in enumerate(specs)]
+    for batch in range(6):
+        for layout, (root, frames) in zip(layouts, pools):
+            out = torch.zeros((8, layout.nbytes), dtype=torch.uint8)
+            direct = layout.upload_into(frames, out, registry=reg)
+            assert direct == (0 if batch == 0 else 8)
+        if batch == 1:
+            assert fake.registered == [(root.ctypes.data, root.nbytes)
+                                       for root, _ in pools]
+    assert len(fake.registered) == 4
+    assert fake.unregistered == [] and syncs == []
+    assert reg.budget() == HostRegistry.CAP_FRAMES * sum(
+        lay.nbytes for lay in layouts)
+
+
 def test_memory_already_pinned_is_used_and_never_unregistered():
     reg, fake = registry(pinned=True)
     root, frames = pool(NV12, 4)

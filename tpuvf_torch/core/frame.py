@@ -245,14 +245,17 @@ class HostRegistry:
     admitted root already page-locked (`pinned`: its owner registered it,
     or torch's pinned tensors) is used as it is and never unregistered; any
     other is registered (`register(ptr, nbytes)` -> a CUDA error code) and
-    held strongly until it is unregistered.  Registered roots hold at most
-    `CAP_FRAMES` frames of the admitting layout in all: to admit another,
-    the least recently used ones, none of the current upload's, are
-    unregistered after synchronising `device`, and a root that still does
-    not fit waits for a later upload.  A root stays on the fill path when
-    it is read-only, not one contiguous block, larger than the cap or
-    refused by the registration (not tried again).  `release` unregisters
-    every root registered here."""
+    held strongly until it is unregistered.  One budget holds every
+    source's roots: `CAP_FRAMES` frames of each layout that an upload
+    brought here and that still lives (a pipeline's sources keep one
+    layout each), so a source's admission never has to unregister the pool
+    of another source that fits its own share.  To admit a root beyond the
+    budget, the least recently used ones, none of the current upload's,
+    are unregistered after synchronising `device`, and a root that still
+    does not fit waits for a later upload.  A root stays on the fill path
+    when it is read-only, not one contiguous block, larger than the budget
+    or refused by the registration (not tried again).  `release`
+    unregisters every root registered here."""
 
     CAP_FRAMES = 64
 
@@ -265,6 +268,7 @@ class HostRegistry:
         # id(root) -> [weakref, state, the last upload that brought it]
         self._roots: Dict[int, list] = {}
         self._held: Dict[int, np.ndarray] = {}  # id -> root registered here
+        self._layouts = weakref.WeakSet()  # the budget's layouts
         self._uploads = 0
 
     def covers(self, frames, layout: "HostLayout", edge=None,
@@ -274,6 +278,7 @@ class HostRegistry:
         directly, admitting the roots an earlier upload brought (span
         ``tpuvf_torch.upload.alloc``)."""
         self._uploads += 1
+        self._layouts.add(layout)
         found = [self._frame_roots(arrays, layout) for arrays in frames]
         again = []
         for key, root in {id(r): r for rs in found for r in rs or ()}.items():
@@ -286,7 +291,7 @@ class HostRegistry:
         for key, root, entry in again:
             if entry[1] == _SEEN:
                 with trace("tpuvf_torch.upload.alloc", edge, index):
-                    entry[1] = self._admit(key, root, layout.nbytes)
+                    entry[1] = self._admit(key, root)
         return [rs is not None and all(
             self._roots[id(r)][1] == _DIRECT for r in rs)
             for rs in found]
@@ -314,9 +319,13 @@ class HostRegistry:
 
         return weakref.ref(root, forget)
 
-    def _admit(self, key: int, root: np.ndarray, frame_bytes: int) -> int:
+    def budget(self) -> int:
+        """Bytes the registered roots may hold in all (class doc)."""
+        return self.CAP_FRAMES * sum(lay.nbytes for lay in self._layouts)
+
+    def _admit(self, key: int, root: np.ndarray) -> int:
         """A root brought again -> its state."""
-        cap = self.CAP_FRAMES * frame_bytes
+        cap = self.budget()
         if (not root.flags.writeable or not root.flags.c_contiguous
                 or root.nbytes > cap):
             return _REFUSED

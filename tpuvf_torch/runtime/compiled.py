@@ -469,14 +469,18 @@ class CompiledStep:
             self._params_at[key] = _ParamRows(key[0], n, self._aggs)
         return self._params_at[key]
 
-    def stage(self, reads, metas) -> None:
-        """This frame's scalars and draw tables -> its fixed rows."""
-        self.stage_batch([reads], [metas])
+    def stage(self, reads, metas, index=None) -> None:
+        """This frame's scalars and draw tables -> its fixed rows; `index`,
+        the frame's, rides in the span of its tables."""
+        self.stage_batch([reads], [metas], index)
 
-    def stage_batch(self, rows, metas) -> None:
+    def stage_batch(self, rows, metas, index=None) -> None:
         """A batch's scalars and draw tables, one frame a row -> the fixed
-        rows of its size, one copy each (`_ParamRows.stage`)."""
-        tables = [self.pipe._frame_tables(r, m) for r, m in zip(rows, metas)]
+        rows of its size, one copy each (`_ParamRows.stage`); `index`, the
+        first frame's, numbers the frames in the spans of their tables."""
+        tables = [self.pipe._frame_tables(
+            r, m, None if index is None else index + j)
+            for j, (r, m) in enumerate(zip(rows, metas))]
         self.param_rows(self.device, len(rows)).stage(self._stager, rows,
                                                       tables)
 

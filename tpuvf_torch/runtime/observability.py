@@ -93,10 +93,10 @@ class PipelineError(RuntimeError):
 
 # the parts of a frame's host edge in the run loops, in order: each but
 # "step" is the seconds of the span "tpuvf_torch.<part>"; "step" is
-# params + enqueue
-EDGE_PARTS = ("params", "upload", "upload.source", "upload.alloc",
-              "upload.fill", "upload.copy", "enqueue", "step", "readback",
-              "wait", "consume")
+# params + enqueue (params.select and params.tables nest inside params)
+EDGE_PARTS = ("params", "params.select", "params.tables", "upload",
+              "upload.source", "upload.alloc", "upload.fill", "upload.copy",
+              "enqueue", "step", "readback", "wait", "consume")
 _PREFIX = "tpuvf_torch."
 # span name -> its edge_seconds key
 _EDGE_KEY = {_PREFIX + k: k for k in EDGE_PARTS if k != "step"}
@@ -119,7 +119,10 @@ class PipelineStats:
     upload_filled: int = 0
     # host seconds of each part of the run loops' frame edge (EDGE_PARTS),
     # each the summed durations of its span (`trace`): params (controllers
-    # synced, buffers selected, params read and staged), upload (all of a
+    # synced, buffers selected, params read and staged) with its parts
+    # params.select (each frame's `_select_buffers`) and params.tables
+    # (each frame's `_frame_tables`, the compositors' prepare pass; 0
+    # without a compositor), upload (all of a
     # frame's or a batch's upload) with its parts upload.source (the
     # source's generate), upload.alloc (the fresh pinned host buffer, or the
     # registration of a source's memory), upload.fill (the host copy into

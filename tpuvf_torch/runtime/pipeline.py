@@ -660,19 +660,23 @@ class Pipeline:
                                      else None)
         return out
 
-    def _frame_tables(self, reads, metas):
+    def _frame_tables(self, reads, metas, index=None):
         """A frame's draw tables (the compositors' prepare passes on
         their host values and their pads' flags), back to back as
-        `_table_layout` lays them out; None without a compositor."""
+        `_table_layout` lays them out; None without a compositor.  The
+        prepare passes are the span ``tpuvf_torch.params.tables``, the
+        frame index `index` in its args."""
         layout = self._table_layout()
         if not layout:
             return None
-        pad_meta = self._pad_meta(metas)
-        flat = np.empty(sum(n for _, _, n in layout), np.int32)
-        for st, offset, n in layout:
-            name = st.element.name
-            st.process.draw_table(reads[name][1], pad_meta[name],
-                                  out=flat[offset:offset + n])
+        with trace("tpuvf_torch.params.tables", self.stats.edge_seconds,
+                   index):
+            pad_meta = self._pad_meta(metas)
+            flat = np.empty(sum(n for _, _, n in layout), np.int32)
+            for st, offset, n in layout:
+                name = st.element.name
+                st.process.draw_table(reads[name][1], pad_meta[name],
+                                      out=flat[offset:offset + n])
         return flat
 
     def upload(self, host_frame) -> Dict[str, torch.Tensor]:
@@ -846,6 +850,16 @@ class Pipeline:
             })
         return sel
 
+    def _select_frames(self, first: int, n: int, out_fps, infos) -> list:
+        """`_select_buffers` for output frames first .. first + n - 1, each
+        the span ``tpuvf_torch.params.select``, its frame index in args."""
+        edge = self.stats.edge_seconds
+        out = []
+        for k in range(first, first + n):
+            with trace("tpuvf_torch.params.select", edge, k):
+                out.append(self._select_buffers(k, out_fps, infos))
+        return out
+
     # -- per-frame params, controllers, rebuilds ------------------------------
 
     def _active(self) -> List[Element]:
@@ -1017,11 +1031,11 @@ class Pipeline:
                     uploaded.clear()
             try:
                 with trace("tpuvf_torch.params", edge, i):
-                    selection = self._select_buffers(i, out_fps, infos)
+                    selection = self._select_frames(i, 1, out_fps, infos)[0]
                     reads = read_params(self._active(), self.device)
                     metas = {name: meta
                              for name, (_, meta) in selection.items()}
-                    compiled.stage(reads, metas)
+                    compiled.stage(reads, metas, i)
                     retry = self._eager_retry(selection, reads)
                 with trace("tpuvf_torch.upload", edge, i):
                     compiled.await_copies()
@@ -1207,12 +1221,11 @@ class Pipeline:
                     for j in range(n):
                         self._ctl_sync(done + j, structure)
                         rows.append(read_params(self._active(), self.device))
-                    selections = [self._select_buffers(done + j, out_fps,
-                                                       infos)
-                                  for j in range(n)]
+                    selections = self._select_frames(done, n, out_fps,
+                                                      infos)
                     metas = [{name: meta for name, (_, meta) in sel.items()}
                              for sel in selections]
-                    compiled.stage_batch(rows, metas)
+                    compiled.stage_batch(rows, metas, done)
                     retries = [self._eager_retry(sel, r)
                                for sel, r in zip(selections, rows)]
                 with trace("tpuvf_torch.upload", edge, done):
@@ -1500,13 +1513,13 @@ class Pipeline:
                                      for dev in devices})
                         if j == 0:  # the eager re-run's, on the pipeline's
                             first = read_params(self._active(), self.device)
-                    selections = [self._select_buffers(done + j, out_fps,
-                                                       infos)
-                                  for j in range(n)]
+                    selections = self._select_frames(done, n, out_fps,
+                                                      infos)
                     metas = [{name: meta for name, (_, meta) in sel.items()}
                              for sel in selections]
                     tables = [self._frame_tables(rows[j][devices[0]],
-                                                 metas[j]) for j in range(n)]
+                                                 metas[j], done + j)
+                              for j in range(n)]
                     params = {}
                     for dev in devices:
                         params[dev] = compiled.param_rows(dev, n)
