@@ -15,6 +15,13 @@ ones, as a graph writes its own buffers.
   ``sink_0::xpos`` ramp (the draw table a row), greedy-H over two calls
   (the state across batches and calls; batch 1 captures), alternating TFF,
   a short tail (its own key), `reset()`.
+- The card's two output sets and readback stream, the streams and events
+  faked (`streams_on_cpu`) and a capture that runs nothing
+  (`two_sets_on_cpu`): a batch key captured twice and counted once, its
+  sets taken in turns over odd and even batch counts, a short tail and two
+  calls, byte-equal to `run`, each stream handed its waits, records and
+  copies in order; `run`, `run_live` and the mesh path hand the readback
+  stream nothing.
 - A fault at a replay raises PipelineError at the batch's first frame, the
   element named by the eager re-run; a capture broken by a stage names it
   at the batch's first frame.
@@ -23,6 +30,8 @@ ones, as a graph writes its own buffers.
   at most 1 LSB (the b/c/s fold's and greedy-H's knife edges under XLA's
   compile).
 """
+
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -43,6 +52,8 @@ from tests.test_torch_compiled_step import (
 )
 from tests.test_torch_elements import diff_stats
 from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
+from tpuvf_torch.core.frame import HostLayout
+from tpuvf_torch.parallel.mesh import make_mesh
 from tpuvf_torch.runtime.compiled import _Entry
 from tpuvf_torch.runtime.observability import PipelineError
 
@@ -71,6 +82,8 @@ class CpuGraph:
 def _tensors(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        return _tensors(list(tree.values()))
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _tensors(v)]
     return []
@@ -239,6 +252,149 @@ def test_the_state_is_not_an_input_row():
     assert not lo <= prev.data_ptr() < hi
     want = torch.from_numpy(feeds["appsrc0"][3][..., [2, 1, 0, 3]])
     assert torch.equal(prev, want.permute(2, 0, 1))
+
+
+# -- two output sets, read back on a stream of their own -----------------------
+
+
+class FakeStream:
+    """A stream or an event of the card, each call logged in order."""
+
+    def __init__(self, name, log):
+        self.name, self.log = name, log
+
+    def wait_event(self, event):
+        self.log.append((self.name, "wait", event.name))
+
+    def record(self, stream):
+        self.log.append((stream.name, "record", self.name))
+
+
+def streams_on_cpu(monkeypatch, pipe) -> list:
+    """`pipe`'s compiled step with the readback stream and its events of
+    the card (module doc of ``runtime/compiled.py``) faked on the CPU,
+    ``torch.cuda``'s current stream with them; -> the log of what each
+    stream is handed, a readback's copies (``HostLayout.readback``) and
+    ``record_stream`` included."""
+    log = []
+    cs = pipe.compiled
+    current = [FakeStream("compute", log)]
+    cs._readback = FakeStream("readback", log)
+    cs._step_done = FakeStream("step_done", log)
+    cs._outputs_free = (FakeStream("free0", log), FakeStream("free1", log))
+
+    @contextmanager
+    def stream(s):
+        current.append(s)
+        try:
+            yield
+        finally:
+            current.pop()
+
+    real = HostLayout.readback
+
+    def readback(self, pieces, flat):
+        log.append((current[-1].name, "copy"))
+        return real(self, pieces, flat)
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: current[-1])
+    monkeypatch.setattr(torch.cuda, "stream", stream)
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda t, s: log.append((s.name, "record_stream")))
+    monkeypatch.setattr(HostLayout, "readback", readback)
+    return log
+
+
+def two_sets_on_cpu(pipe) -> list:
+    """`pipe`'s compiled step captures as a CUDA graph does, running
+    nothing (the body runs, then the state is put back); each replay runs
+    the body and writes the graph's own outputs.  -> the first frame index
+    of each capture."""
+    cs = pipe.compiled
+    cs.graphs = True
+    captured = []
+
+    def capture(body, device, index):
+        captured.append(index)
+        fixed = _tensors(cs._state.fixed)
+        held = [t.clone() for t in fixed]
+        result = body()
+        for t, h in zip(fixed, held):
+            t.copy_(h)
+        graph = CpuGraph(body, result)
+        graph.first = False
+        return _Entry(graph, result, {})
+
+    cs._capture = capture
+    return captured
+
+
+def batches_of(log) -> list:
+    """The log cut at each batch's first entry, the compute stream's wait
+    on the output set it is to write."""
+    cuts = [k for k, e in enumerate(log) if e[:2] == ("compute", "wait")]
+    return [log[a:b] for a, b in zip(cuts, cuts[1:] + [len(log)])]
+
+
+@pytest.mark.parametrize("frames", [6, 8, 7])  # odd, even, a short tail
+def test_two_output_sets_in_turns(frames, monkeypatch):
+    """Greedy-H (state through the frames) in batches of 2 over two calls,
+    with the card's readback stream and events faked: each batch key
+    captured twice, its two output sets taken in turns from batch to batch
+    and across the calls, byte-equal to `run`; per batch the compute
+    stream waits on the set's `_outputs_free`, records `_step_done` after
+    the step, and the readback stream waits on it, copies each frame, the
+    eager batch's pieces marked as used there first, and records the set's
+    `_outputs_free`."""
+    feeds = {"appsrc0": i420(frames, 64, 36, 37)}
+    ref = fed(GREEDY, feeds, device="cpu")
+    want = run_frames(ref, frames) + run_frames(ref, frames)[frames:]
+    pipe = fed(GREEDY, feeds, device="cpu")
+    captured = two_sets_on_cpu(pipe)
+    log = streams_on_cpu(monkeypatch, pipe)
+    assert batched(pipe, (frames, frames), 2) == want
+    cs = pipe.compiled
+    keys = 1 + frames % 2  # a tail takes a key of its own
+    assert cs.batch_captures == keys and len(captured) == 2 * keys
+    assert all(len(e.sets) == 2 for e in cs._batches.values())
+    assert cs.eager == 2  # batch 0: has_prev False on its first frame
+    assert pipe.stats.readback_async == 2 * frames
+    sizes = ([2] * (frames // 2) + [1] * (frames % 2)) * 2
+    batches = batches_of(log)
+    assert len(batches) == len(sizes)
+    for b, (n, got_log) in enumerate(zip(sizes, batches)):
+        free = f"free{(b + 1) % 2}"
+        # an I420 frame is three pieces
+        marks = [("readback", "record_stream")] * 3 * n if b == 0 else []
+        assert got_log == ([("compute", "wait", free),
+                            ("compute", "record", "step_done"),
+                            ("readback", "wait", "step_done")] + marks
+                           + [("readback", "copy")] * n
+                           + [("readback", "record", free)]), b
+
+
+@pytest.mark.parametrize("loop", ["run", "run_live", "mesh"])
+def test_other_loops_read_back_on_the_compute_stream(loop, monkeypatch):
+    """With the readback stream faked as above, `run`, `run_live` and the
+    mesh path hand it nothing: their readbacks stay on the current
+    stream, and `readback_async` stays 0."""
+    feeds = {"appsrc0": i420(8, 64, 36, 38)}
+    want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
+    pipe = fed(GREEDY, feeds, device="cpu")
+    log = streams_on_cpu(monkeypatch, pipe)
+    if loop == "run":
+        got = run_frames(pipe, 8)
+    elif loop == "run_live":
+        pipe.run_live(8, time_fn=lambda: 0.0, sleep_fn=lambda s: None)
+        got = [payload_bytes(f) for f in pipe["appsink0"].frames]
+    else:
+        pipe.run_batched(8, batch_size=4,
+                         mesh=make_mesh({"dp": 1}, devices=["cpu"]))
+        got = [payload_bytes(f) for f in pipe["appsink0"].frames]
+    assert got == want
+    assert log == [("compute", "copy")] * 8
+    assert pipe.stats.readback_async == 0
 
 
 # -- failures ------------------------------------------------------------------

@@ -26,11 +26,25 @@ steps or the readbacks held back, so that a readback of the fixed inputs
 would read the next upload's rows; a file source that hands out a fresh
 array a frame stays on the fill path, also where a compositor takes its
 frames at two rates; memory the caller pinned, and torch's pinned memory;
-the registrations undone when the pipeline is freed.
+the registrations undone when the pipeline is freed.  The batch readback on
+a stream of its own over two output sets taken in turns
+(`CompiledStep.reading_back`): `run_batched` over recurring pools, 48 frames
+in batches of 6, through the 4K convert+filter chain and BASELINE config 5's
+four-pad 4K compositor (the benchmark's ``compositor_4k`` with an appsink),
+byte-equal to the eager fill run, with the readback stream held before each
+batch's copies (so the replays run ahead, kept from writing the output set
+being read by the compute stream's wait on `_outputs_free` and the loop's
+wait on each batch's delivery; once with every step eager, its payloads
+from the caching allocator), and the
+compute stream before each step and before the fourth alone (which only the
+readback stream's wait on `_step_done` keeps the copies from outrunning).
 """
 
 import gc
+import json
 import weakref
+from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,7 +55,7 @@ from tpuvf_torch.core.formats import VideoFormat
 from tpuvf_torch.core.frame import HostLayout, HostRegistry, host_pieces
 from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.runtime.compiled import CompiledStep, _unaliased
-from tpuvf_torch.runtime.pipeline import Pipeline
+from vfbench import inputs
 
 CPU = torch.device("cpu")
 NV12 = FrameSpec(VideoFormat.NV12, 16, 8)
@@ -299,6 +313,7 @@ def test_the_counters_on_the_cpu(loop):
         pipe.run_batched(8, batch_size=4,
                          mesh=make_mesh({"dp": 2}, devices=["cpu"] * 2))
     assert (pipe.stats.upload_direct, pipe.stats.upload_filled) == (0, 8)
+    assert pipe.stats.readback_async == 0  # no readback stream
     pipe.build()  # the stats start afresh with the build
     assert (pipe.stats.upload_direct, pipe.stats.upload_filled) == (0, 0)
 
@@ -385,21 +400,32 @@ HOLD_CYCLES = 400_000_000  # about 0.2 s of the card's clock
 
 def hold(monkeypatch, what: str) -> None:
     """Hold a stream back on the card (`torch.cuda._sleep`).  "steps": the
-    compute stream before each step, after its wait on the upload, so the
-    host enqueues the next upload before the step has read its rows, which
-    only the copy stream's wait on `_inputs_free` keeps from being
-    overwritten.  "copies": the copy stream before each upload's copies,
-    which only the step's wait on `_inputs_ready` keeps it from
-    outrunning.  "readbacks": the compute stream before each readback,
-    after `_inputs_free`, so the next upload writes the fixed inputs before
-    the readback has read its payload, which must therefore not be a view
-    of them (`_unaliased`)."""
-    if what == "steps":
+    compute stream before each step, after its wait on the upload (and a
+    batch's on its output set), so the host enqueues the next upload
+    before the step has read its rows, which only the copy stream's wait
+    on `_inputs_free` keeps from being overwritten, and a batch's readback
+    before the step has written its payloads, which only the readback
+    stream's wait on `_step_done` keeps from reading them early.
+    "step3": the same before the fourth step alone (`run_batched`'s
+    fourth batch, the second on its output set), the readback stream idle
+    and ahead of it.  "copies": the copy stream before each upload's
+    copies, which only the step's wait on `_inputs_ready` keeps it from
+    outrunning.  "readbacks": the readback stream before each batch's
+    copies (`CompiledStep.reading_back`, after its wait on `_step_done`),
+    so the next batches' replays run ahead: the next upload writes the
+    fixed inputs before the readback has read its payload, which must
+    therefore not be a view of them (`_unaliased`), and the replay two
+    batches later would write the payloads being read but for its wait on
+    `_outputs_free` (and the loop's wait on the batch's delivery)."""
+    if what in ("steps", "step3"):
         real = CompiledStep._over_inputs
+        steps = []
 
         def held(self, run):
             def later():
-                torch.cuda._sleep(HOLD_CYCLES)
+                if what == "steps" or len(steps) == 3:
+                    torch.cuda._sleep(HOLD_CYCLES)
+                steps.append(1)
                 return run()
             return real(self, later)
 
@@ -413,23 +439,28 @@ def hold(monkeypatch, what: str) -> None:
 
         monkeypatch.setattr(HostLayout, "upload_into", held_upload)
     elif what == "readbacks":
-        real_readback = Pipeline._readback
+        real_reading = CompiledStep.reading_back
 
-        def held_readback(self, *a, **k):
-            torch.cuda._sleep(HOLD_CYCLES)
-            return real_readback(self, *a, **k)
+        @contextmanager
+        def held_reading(self, outs):
+            with real_reading(self, outs):
+                torch.cuda._sleep(HOLD_CYCLES)  # on the readback stream
+                yield
 
-        monkeypatch.setattr(Pipeline, "_readback", held_readback)
+        monkeypatch.setattr(CompiledStep, "reading_back", held_reading)
 
 
 def _card_run(loop, frames, n, direct=True, chain=CHAIN):
-    """`loop` over `frames` in a cycle through `chain`, n frames -> (the
-    sink's frames as bytes, the pipeline's stats).  `direct` False: the
-    registry off and every step eager, the reference."""
+    """`loop` over `frames` ({source: frames}, or appsrc0's) in a cycle
+    through `chain`, n frames -> (the sink's frames as bytes, the
+    pipeline's stats).  `direct` False: the registry off and every step
+    eager, the reference."""
     pipe = parse_pipeline(chain, device="cuda")
-    for k in range(n):
-        pipe["appsrc0"].push(frames[k % len(frames)])
-    pipe["appsrc0"].end_of_stream()
+    pools = frames if isinstance(frames, dict) else {"appsrc0": frames}
+    for name, pooled in pools.items():
+        for k in range(n):
+            pipe[name].push(pooled[k % len(pooled)])
+        pipe[name].end_of_stream()
     if not direct:
         pipe._host_memory = None
         pipe.compiled.graphs = False
@@ -441,7 +472,7 @@ def _card_run(loop, frames, n, direct=True, chain=CHAIN):
         pipe.run_live(n, time_fn=lambda: 0.0, sleep_fn=lambda s: None)
     out = [row_bytes(f, pipe._source_spec(pipe["appsrc0"])).tobytes()
            if isinstance(f, dict) else np.ascontiguousarray(f).tobytes()
-           for f in pipe["appsink0"].frames]
+           for f in pipe.sinks[0].frames]
     return out, pipe.stats
 
 
@@ -580,3 +611,46 @@ def test_registrations_are_undone_when_the_pipeline_is_freed(card):
     rt = torch.cuda.cudart()
     assert int(rt.cudaHostRegister(root.ctypes.data, root.nbytes, 0)) == 0
     assert int(rt.cudaHostUnregister(root.ctypes.data)) == 0
+
+
+# -- the batch readback on a stream of its own, on the card ---------------------
+
+FRAMES = 48  # 8 batches of 6
+CONFIG5 = Path(__file__).parents[1] / "vfbench/configs/compositor_4k.json"
+
+
+def compositor(tmp_path):
+    """BASELINE config 5's launch with an appsink, and a pool of 8 frames a
+    source -> (launch, {source: frames})."""
+    cfg = json.loads(CONFIG5.read_text())
+    ref = cfg["reference"]
+    png = inputs.write_png(tmp_path / "overlay.png",
+                           inputs.overlay_image(ref["overlay"]))
+    desc = cfg["launch"].format(fps="30/1", png=png).replace(
+        "vfbenchsink name=out", "appsink name=out")
+    pools = {name: pool(FrameSpec(VideoFormat(s["format"]), s["width"],
+                                  s["height"]), 8, seed=40 + k)[1]
+             for k, (name, s) in enumerate(sorted(ref["sources"].items()))}
+    return desc, pools
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("held", ["readbacks", "steps", "step3",
+                                  "readbacks eager"])
+@pytest.mark.parametrize("config", ["convert_filter", "compositor"])
+def test_the_batch_readback_stream_on_the_card(card, monkeypatch, tmp_path,
+                                               config, held):
+    if config == "compositor":
+        desc, frames = compositor(tmp_path)
+    else:
+        desc = CHAIN
+        frames = pool(FrameSpec(VideoFormat.NV12, 3840, 2160), 8, seed=41)[1]
+    want, _ = _card_run("run_batched", frames, FRAMES, False, desc)
+    what, _, eager = held.partition(" ")
+    hold(monkeypatch, what)
+    got, stats = _card_run("run_batched", frames, FRAMES, not eager, desc)
+    assert len(set(want[:8])) == 8  # every pool frame differs
+    assert len(got) == len(want) == FRAMES
+    wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert not wrong, f"{len(wrong)} of {FRAMES} frames wrong: {wrong}"
+    assert stats.readback_async == FRAMES

@@ -35,11 +35,13 @@ buffers that stay put from frame to frame:
   buffers (a rebuild's carry, a mesh run's, a caller's) is copied in first;
 - **outputs**: each sink's ``device_payload`` (the host-layout permutation,
   a vfvideosink's render) runs inside the body; its pieces are the graph's
-  own buffers, which the caller copies to the host right after the replay,
-  before the next replay can write them.  On CUDA a piece that would be a
-  view of the fixed inputs (a plane a chain passes on as it came in) is
-  copied inside the body (`_unaliased`): its readback follows
-  `_inputs_free`, so the next upload may already be writing those inputs.
+  own buffers, which the caller copies to the host right after the replay.
+  A frame's readback runs on the compute stream, before the next replay
+  can write them; a batch's runs on a readback stream of the step's own
+  over two output sets (below).  On CUDA a piece that would be a view of
+  the fixed inputs (a plane a chain passes on as it came in) is copied
+  inside the body (`_unaliased`): its readback follows `_inputs_free`, so
+  the next upload may already be writing those inputs.
 
 A **batch's body** (`step_batch`, `Pipeline.run_batched` without a mesh)
 runs n frames' bodies back to back over n sets of those buffers: n fixed
@@ -49,6 +51,27 @@ ramp within a batch is data, not a key.  The state runs through the n
 frames inside the body (frame j+1 reads what frame j left) and is copied
 back into the fixed state buffers once, at the end.  Each frame's
 payloads are the graph's own buffers, n sets of them.
+
+On CUDA a batch key's body is captured twice at once, two graphs over the
+same fixed inputs, params and state, each with its own payloads: two
+output sets, which the batches take in turns (`_turn`), so a batch's
+readback runs on the step's readback stream (`reading_back`) beside the
+next batch's replay.  Three events order them: the readback stream waits
+on `_step_done`, recorded on the compute stream right after the batch's
+step (where `_inputs_free` is), before it copies the batch's payloads;
+`_outputs_free` of the set is recorded on the readback stream after the
+copies, and the compute stream waits on it before the set's next replay,
+two batches later; each frame's event (``Pipeline._readback``) is
+recorded on the readback stream.  The replays, and so the write-back of
+the state, stay in order on the compute stream.  An eager batch's
+payloads come from the caching allocator on the compute stream, so each
+piece is marked as used on the readback stream (``record_stream``) before
+its copy.  `Pipeline.run_batched` waits on batch b's events, handing it
+to the sinks, before it enqueues batch b+2, so its order alone keeps
+batch b's copies ahead of the replay that writes their set again and of
+the reuse of their memory; `_outputs_free` and ``record_stream`` keep the
+step right for a caller that waits later.  A frame's step and a shard's
+keep one set and read back on their current stream.
 
 A **dp shard's body** (`ShardStep`, `Pipeline.run_batched(mesh=...)`) is
 the shard's sub-batch (``batch_size/dp`` frames) through
@@ -107,21 +130,25 @@ rebuild does.
 
 **Memory.**  Each graph holds its intermediates and its outputs in a
 private memory pool of the caching allocator: a batch graph n frames'
-worth (n payload sets), beside the n fixed input rows of its batch size.
-At most `MAX_GRAPHS` frame graphs and, on a limit of their own,
-`MAX_BATCH_GRAPHS` batch and shard graphs are kept (the least recently
-used goes first): a capture costs a collection and an emptied cache
-(100-600 ms on the card), so the limit leaves room for a full batch's and
-a tail's key on each shard of a four-card mesh.
+worth (n payload sets), beside the n fixed input rows of its batch size;
+a batch key on CUDA has two such graphs, its two output sets.  At most
+`MAX_GRAPHS` frame keys and, on a limit of their own, `MAX_BATCH_GRAPHS`
+batch and shard keys keep their graphs (the least recently used goes
+first): a capture costs a collection and an emptied cache (100-600 ms on
+the card), so the limit leaves room for a full batch's and a tail's key
+on each shard of a four-card mesh.
 
 **Counters.**  `keys` (frame keys learnt), `captures` and `replays` (frame
-graphs), `batch_captures` and `batch_replays` (batch and shard graphs)
-and `eager` (frames run without a graph) count the step's work; each
-capture's wall time adds to ``PipelineStats.compile_seconds``.  A replay
-runs no Python, so each graph records the kernel launches its capture made
-(each wrapper's ``launches``; a batch graph n frames' worth) and adds them
-to the counters at every replay after the first, which runs the captured
-body itself.
+graphs), `batch_captures` and `batch_replays` (batch and shard keys
+captured, and replays of their graphs) and `eager` (frames run without a
+graph) count the step's work; each capture's wall time adds to
+``PipelineStats.compile_seconds``.  A replay runs no Python, so each key
+records the kernel launches its capture made (each wrapper's
+``launches``; a batch graph n frames' worth; a second output set's
+capture is taken back off the counters) and adds them to the counters at
+every replay after the first, which runs the captured body itself.  The
+frames read back on the readback stream add to
+``PipelineStats.readback_async``.
 
 **Failures.**  A capture that an element's op breaks raises
 ``PipelineError`` naming that element at its frame (`Pipeline.
@@ -139,6 +166,7 @@ from __future__ import annotations
 import gc
 import time
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -340,13 +368,13 @@ class _ParamRows:
 
 
 class _Entry:
-    """One key's captured graph, what its capture's body returned (its
-    outputs and the state it leaves: the graph's own buffers), and the
-    launches its capture made."""
+    """One key's captured graphs, each with what its capture's body
+    returned (its outputs and the state it leaves: the graph's own
+    buffers), as `sets`: one, or a batch key's two output sets on CUDA
+    (module doc); and the launches one capture made."""
 
     def __init__(self, graph, result, launches):
-        self.graph = graph
-        self.result = result
+        self.sets = [(graph, result)]
         self.launches = launches
 
     def count(self) -> None:
@@ -386,6 +414,15 @@ class CompiledStep:
             self._inputs_free = torch.cuda.Event()
             self._inputs_ready = torch.cuda.Event()
         self._reads_source = False  # the last upload copied a source's own
+        # the batch readback's stream and its events (module doc), CUDA only
+        self._readback = self._step_done = None
+        self._outputs_free = ()
+        if self.device.type == "cuda":
+            self._readback = torch.cuda.Stream(self.device)
+            self._step_done = torch.cuda.Event()
+            self._outputs_free = (torch.cuda.Event(), torch.cuda.Event())
+        self._turn = 0  # the output set of the last batch
+        self._eager_out = False  # the last batch's payloads are not a graph's
         self._rows: Dict[int, tuple] = {}  # n -> _input_rows
         self._inputs = self.batch_inputs(1)  # a frame's fixed inputs
         self._aggs = pipe._table_layout()  # [(stage, offset, size)]
@@ -575,9 +612,10 @@ class CompiledStep:
             self.captures += 1
         else:
             entry.count()
-        entry.graph.replay()
+        graph, result = entry.sets[0]
+        graph.replay()
         self.replays += 1
-        return entry.result
+        return result
 
     # -- the batch step -------------------------------------------------------
 
@@ -607,27 +645,69 @@ class CompiledStep:
         `stage_batch`), `index` its first frame's: -> ([each frame's
         [(sink, layout, device pieces)]], the carried state).  One replay
         of the batch key's graph; eager while a frame key is unknown and
-        without `graphs`."""
+        without `graphs`.  On CUDA the batches take the two output sets in
+        turns, each replay after the readback of the set's last batch
+        (`reading_back`, module doc)."""
         self._check_sinks()
         state = self._load_state(state)
         keys = self._frame_keys(
             lambda j, sk: self._key(rows[j], metas[j], sk), len(rows),
             _tree_key(state))
-        return self._over_inputs(lambda: self._run_batch(
-            None if keys is None else ("batch", len(rows), keys),
-            lambda: self._batch_body(rows, metas, state, index),
-            self.device, len(rows), index))
+        key = None if keys is None else ("batch", len(rows), keys)
+        self._eager_out = key is None or not self.graphs
+        turn = None
+        if self._readback is not None:
+            turn = self._turn = 1 - self._turn
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._outputs_free[turn])
+        out = self._over_inputs(lambda: self._run_batch(
+            key, lambda: self._batch_body(rows, metas, state, index),
+            self.device, len(rows), index, turn))
+        if turn is not None:
+            self._step_done.record(stream)
+        return out
 
-    def _run_batch(self, key, body, device, frames: int, index: int):
+    @contextmanager
+    def reading_back(self, outs):
+        """Enqueue inside the readback of `outs`, the last `step_batch`'s
+        payloads: on CUDA on the readback stream, after `_step_done`, the
+        pieces of an eager batch marked as used there, and the output set's
+        `_outputs_free` recorded after the copies (module doc); the frames
+        add to ``PipelineStats.readback_async``.  Elsewhere on the current
+        stream."""
+        if self._readback is None:
+            yield
+            return
+        stream = self._readback
+        stream.wait_event(self._step_done)
+        if self._eager_out:
+            for payloads in outs:
+                for _, _, pieces in payloads:
+                    for piece in pieces:
+                        piece.record_stream(stream)
+        with torch.cuda.stream(stream):
+            yield
+        self._outputs_free[self._turn].record(stream)
+        self.pipe.stats.readback_async += len(outs)
+
+    def _run_batch(self, key, body, device, frames: int, index: int,
+                   turn: Optional[int] = None):
         """`body` (`frames` frames): eager while `key` is None and without
         `graphs`, else `key`'s graph, captured at its first use, then
-        replayed; -> what the body returns."""
+        replayed; -> what the body returns.  With `turn` (0 or 1), the
+        key's body is captured twice, two output sets, and set `turn`
+        replays."""
         if key is None or not self.graphs:
             self.eager += frames
             return body()
         entry = self._batches.get(key)
         if entry is None:
             entry = self._capture(body, device, index)
+            if turn is not None:
+                twin = self._capture(body, device, index)
+                entry.sets += twin.sets
+                for wrapper, n in twin.launches.items():  # counted at replays
+                    wrapper.launches -= n
             self.batch_captures += 1
             self._batches[key] = entry
             while len(self._batches) > self.MAX_BATCH_GRAPHS:
@@ -635,9 +715,10 @@ class CompiledStep:
         else:
             self._batches.move_to_end(key)
             entry.count()
-        entry.graph.replay()
+        graph, result = entry.sets[turn or 0]
+        graph.replay()
         self.batch_replays += 1
-        return entry.result
+        return result
 
     # -- the mesh -------------------------------------------------------------
 

@@ -7,8 +7,10 @@
 - ``PipelineStats`` counts frames and wall time per pipeline, the build
   time (the first-use kernel build included), the ticks a live run dropped
   and, for the port's run loops, the host time of each part of the frame
-  edge (``edge_seconds``) and the frames uploaded straight from a source's
-  memory or through a host copy (``upload_direct``, ``upload_filled``).
+  edge (``edge_seconds``), the frames uploaded straight from a source's
+  memory or through a host copy (``upload_direct``, ``upload_filled``) and
+  the frames read back on a readback stream of their own
+  (``readback_async``).
 - ``trace()`` is the one span: it reads the host clock at each end and
   adds the difference to its part of ``edge_seconds``
   (``tpuvf_torch.upload`` -> ``"upload"``).  Only while a torch profiler
@@ -17,7 +19,8 @@
   share the profiler's clock with the card's kernels and copies; with none
   active a span costs two clock reads and a dict add.  Span names carry no
   index.  ``TPUVF_DEBUG=perf:5`` logs each span's milliseconds, and at the
-  end of each run the edge parts' seconds and the upload counts.
+  end of each run the edge parts' seconds, the upload counts and
+  ``readback_async``.
 - ``profiler_trace(path)`` captures the enclosed region with torch.profiler
   (the host, and the CUDA activity on a GPU) as a Chrome trace at `path`.
 - Per-frame failures surface as ``PipelineError`` (the GST_FLOW_ERROR
@@ -117,6 +120,9 @@ class PipelineStats:
     # filled)
     upload_direct: int = 0
     upload_filled: int = 0
+    # frames `run_batched` read back on the compiled step's readback stream
+    # (CUDA, no mesh), beside the next batch's step
+    readback_async: int = 0
     # host seconds of each part of the run loops' frame edge (EDGE_PARTS),
     # each the summed durations of its span (`trace`): params (controllers
     # synced, buffers selected, params read and staged) with its parts

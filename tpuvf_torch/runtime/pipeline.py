@@ -1135,10 +1135,12 @@ class Pipeline:
         self.stats.frames += count
         self.stats.wall_seconds += time.perf_counter() - t_run
         _log.info("run complete: %s", self.stats.summary())
-        _perf.debug("edge s: %s; upload direct %d, filled %d",
+        _perf.debug("edge s: %s; upload direct %d, filled %d; readback "
+                    "async %d",
                     ", ".join(f"{k} {v:.6f}" for k, v in
                               self.stats.edge_seconds.items()),
-                    self.stats.upload_direct, self.stats.upload_filled)
+                    self.stats.upload_direct, self.stats.upload_filled,
+                    self.stats.readback_async)
         for sink in self.sinks:
             sink.finalize()
         return count
@@ -1166,8 +1168,15 @@ class Pipeline:
         on the card one replay of the batch key's CUDA graph, once each
         frame key has run eagerly) and each frame's readback into buffers
         of the batch's own (two sets a sink, taken in turns per batch), one
-        event a frame.  Batch b-1 is handed to the sinks while batch b
-        computes.  The carried state runs through the frames in order,
+        event a frame.  On the card the batch graph has two output sets,
+        taken in turns, and the readback runs on the step's readback
+        stream (`CompiledStep.reading_back`): after the batch's step
+        (`_step_done`), with each frame's event recorded after its copies,
+        while the next batch's replay runs on the compute stream; that
+        replay's set was last read back two batches earlier, and the
+        compute stream waits for those copies (`_outputs_free`).  Batch
+        b-1 is handed to the sinks while batch b computes.  The carried
+        state runs through the frames in order,
         across batches and calls, and is `run`'s.  A step failure raises
         PipelineError at the batch's first frame index, as tpuvf's one
         dispatch a batch does (a replay's fault located by the first
@@ -1236,7 +1245,8 @@ class Pipeline:
                         lambda: compiled.step_batch(rows, metas, state, done),
                         done, retries[0])
                 self.state = state
-                with trace("tpuvf_torch.readback", edge, done):
+                with trace("tpuvf_torch.readback", edge, done), \
+                        compiled.reading_back(outs):
                     readbacks = [self._readback(
                         outs[j], done + j, (batch % 2) * batch_size + j,
                         retries[j]) for j in range(n)]
