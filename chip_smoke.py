@@ -153,8 +153,10 @@ Phases (each prints its own lines; any failure exits 1 with no result line):
    against run(); (g) on {dp 2} with independent_streams=True against each
    shard's frames as their own stream, and without the flag the
    ValueError naming the deinterlacer; and the phase's time;
-(n) the compiled step (``runtime/compiled.py``: each frame's step over
-   fixed buffers, captured once per key as a CUDA graph and replayed):
+(n) the compiled step (``runtime/compiled.py``: each frame a batch of
+   one over fixed buffers, captured once per key and output set as a CUDA
+   graph, two sets taken in turns, and replayed, read back on the step's
+   readback stream):
    chains (a)-(k) under Pipeline.run, and (l)'s paths under run() and
    run_live ((b)'s brightness ramp and (f)'s sink_0::xpos ramp, each at
    one capture over 16 frames; run_live on (a); (f) into the navigation
@@ -2035,6 +2037,9 @@ def live_a(card):
              f"{LFRAMES}")
     # frame k is delivered at tick k + 1, the last one as the loop ends:
     # the period is taken between the deliveries of frames 1 and n - 2
+    if len(stamps) < 4:
+        fail(f"{label}: {len(stamps)} of {LFRAMES} frames delivered, "
+             f"{dropped} ticks dropped: too few for a period")
     period = (stamps[-2] - stamps[1]) / (len(stamps) - 3) * 1e3
     lo, hi = pipe.latency()
     print(f"[l live] {label}: {len(stamps)} frames delivered, "
@@ -2429,13 +2434,14 @@ def graph_step_us(pipe) -> tuple:
 
     def eager():
         reads = read_params(pipe._active(), pipe.device)
-        cs.stage(reads, metas)
-        return cs._body(reads, metas, cs._load_state(pipe.state), 0)
+        cs.stage_batch([reads], [metas])
+        return cs._batch_body([reads], [metas], cs._load_state(pipe.state),
+                              0)
 
     def graph():
         reads = read_params(pipe._active(), pipe.device)
-        cs.stage(reads, metas)
-        return cs.step(reads, metas, pipe.state, 0)
+        cs.stage_batch([reads], [metas])
+        return cs.step_batch([reads], [metas], pipe.state, 0)
 
     return (host_us(eager), host_us(graph), cuda_ms(eager) * 1e3,
             cuda_ms(graph) * 1e3)
@@ -2478,13 +2484,15 @@ def compiled_path(label, make, drive, frames, expect=(), captures=None,
                 fail(f"{label}: {sink} frame {i} of the graph run differs "
                      f"from the eager run's")
         compared += len(frames_want)
-    if cs.captures == 0 or cs.replays == 0:
-        fail(f"{label}: {cs.captures} captures, {cs.replays} replays")
-    if captures is not None and cs.captures != captures:
-        fail(f"{label}: {cs.captures} captures, expected {captures} "
+    if cs.batch_captures == 0 or cs.batch_replays == 0:
+        fail(f"{label}: {cs.batch_captures} captures, {cs.batch_replays} "
+             f"replays")
+    if captures is not None and cs.batch_captures != captures:
+        fail(f"{label}: {cs.batch_captures} captures, expected {captures} "
              f"(keys {cs.keys})")
     text = (f"graph = eager byte-equal on {compared} sink frames | keys "
-            f"{cs.keys}, captures {cs.captures}, replays {cs.replays}, "
+            f"{cs.keys}, captures {cs.batch_captures}, replays "
+            f"{cs.batch_replays}, "
             f"eager {cs.eager} | captures took {capture_s * 1e3:.1f} ms "
             f"(compile_seconds {graph.stats.compile_seconds:.3f} s with the "
             f"build)")
@@ -2543,8 +2551,9 @@ def dead_graphs_before_capture():
 
     dead = make()
     dead.run()
-    if dead.compiled.captures != 1:
-        fail(f"(n) dead graphs: {dead.compiled.captures} captures, not 1")
+    if dead.compiled.batch_captures != 1:
+        fail(f"(n) dead graphs: {dead.compiled.batch_captures} captures, "
+             f"not 1")
     del dead
     pipe = make()
     stage = next(st for st in pipe.stages if st.element is pipe["c"])
@@ -2568,8 +2577,8 @@ def dead_graphs_before_capture():
 
     stage.process = Process()
     pipe.run()
-    if pipe.compiled.captures != 1 or not freed:
-        fail(f"(n) dead graphs: {pipe.compiled.captures} captures, the "
+    if pipe.compiled.batch_captures != 1 or not freed:
+        fail(f"(n) dead graphs: {pipe.compiled.batch_captures} captures, the "
              f"collector ran {len(freed)} times in the capture")
     print(f"[n dead graphs] a dropped pipeline's graphs freed before the "
           f"next capture: its run captures 1 graph with the collector run "
@@ -2688,8 +2697,8 @@ def phase_compiled(tmp, card):
 
 def capture_memory(pipe) -> list:
     """Measure each of `pipe`'s compiled-step captures: -> a list that
-    gets, per capture, (peak bytes allocated during it, bytes it left
-    allocated), each above what was allocated just before it
+    gets, per capture (one output set's), (peak bytes allocated during it,
+    bytes it left allocated), each above what was allocated just before it
     (`torch.cuda.max_memory_allocated` after resetting the peak).  The
     collector runs first, as the capture runs it: what it frees is not
     the capture's."""
@@ -2701,16 +2710,16 @@ def capture_memory(pipe) -> list:
     capture = cs._capture
     seen = []
 
-    def measured(body, device, index):
+    def measured(body, device, index, entry):
         gc.collect()
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        entry = capture(body, device, index)
+        captured = capture(body, device, index, entry)
         torch.cuda.synchronize(device)
         seen.append((torch.cuda.max_memory_allocated(device) - base,
                      torch.cuda.memory_allocated(device) - base))
-        return entry
+        return captured
 
     cs._capture = measured
     return seen

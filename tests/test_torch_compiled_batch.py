@@ -17,11 +17,11 @@ ones, as a graph writes its own buffers.
   a short tail (its own key), `reset()`.
 - The card's two output sets and readback stream, the streams and events
   faked (`streams_on_cpu`) and a capture that runs nothing
-  (`two_sets_on_cpu`): a batch key captured twice and counted once, its
-  sets taken in turns over odd and even batch counts, a short tail and two
-  calls, byte-equal to `run`, each stream handed its waits, records and
-  copies in order; `run`, `run_live` and the mesh path hand the readback
-  stream nothing.
+  (`two_sets_on_cpu`): a batch key counted once, its two output sets
+  taken in turns over odd and even batch counts, a short tail and two
+  calls, each set captured at its first use, byte-equal to `run`, each stream handed its waits, records and
+  copies in order; `run` and `run_live`, batches of one frame, in the same
+  order frame by frame; the mesh path hands the readback stream nothing.
 - A fault at a replay raises PipelineError at the batch's first frame, the
   element named by the eager re-run; a capture broken by a stage names it
   at the batch's first frame.
@@ -48,13 +48,13 @@ from tests.test_torch_compiled_step import (
     i420,
     nv12,
     payload_bytes,
+    rgba,
     run_frames,
 )
 from tests.test_torch_elements import diff_stats
 from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
 from tpuvf_torch.core.frame import HostLayout
 from tpuvf_torch.parallel.mesh import make_mesh
-from tpuvf_torch.runtime.compiled import _Entry
 from tpuvf_torch.runtime.observability import PipelineError
 
 torch.set_num_threads(1)
@@ -96,10 +96,10 @@ def replay_on_cpu(pipe):
     cs.graphs = True
     captured = []
 
-    def capture(body, device, index):
+    def capture(body, device, index, entry):
         captured.append(index)
         result = body()
-        return _Entry(CpuGraph(body, result), result, {})
+        return CpuGraph(body, result), result
 
     cs._capture = capture
     return captured
@@ -254,6 +254,39 @@ def test_the_state_is_not_an_input_row():
     assert torch.equal(prev, want.permute(2, 0, 1))
 
 
+def test_a_row_that_holds_its_buffer_is_not_uploaded_again():
+    """`run_batched(batch_size=1)` over a compositor whose second source
+    runs at half the output rate: each source's one row holds its buffer
+    from batch to batch, so every buffer is generated and uploaded once (8
+    of the 60 fps source, 4 of the 30 fps one, which two frames each
+    pick), and the frames equal the eager loop's, which uploads every
+    frame anew, and `run`'s."""
+    desc = ("vfmetalcompositor name=c sink_1::xpos=8 ! video/x-raw,"
+            "format=BGRA,width=32,height=24 ! appsink "
+            "appsrc name=s0 format=NV12 width=32 height=24 ! "
+            "video/x-raw,framerate=60/1 ! c.sink_0 "
+            "appsrc name=s1 format=BGRA width=16 height=12 ! "
+            "video/x-raw,framerate=30/1 ! c.sink_1")
+    feeds = {"s0": nv12(8, 32, 24, 70), "s1": rgba(4, 16, 12, 71)}
+    pipe = fed(desc, feeds, device="cpu")
+    generated = []
+    for name in feeds:
+        src = pipe[name]
+
+        def generate(j, spec, name=name, real=src.generate):
+            generated.append((name, j))
+            return real(j, spec)
+
+        src.generate = generate
+    got = batched(pipe, (8,), 1)
+    assert sorted(generated) == ([("s0", j) for j in range(8)]
+                                 + [("s1", j) for j in range(4)])
+    assert (pipe.stats.upload_direct, pipe.stats.upload_filled) == (0, 12)
+    assert len(set(got)) == 8
+    assert got == eager_frames(fed(desc, feeds, device="cpu"), 8)
+    assert got == run_frames(fed(desc, feeds, device="cpu"), 8)
+
+
 # -- two output sets, read back on a stream of their own -----------------------
 
 
@@ -315,7 +348,7 @@ def two_sets_on_cpu(pipe) -> list:
     cs.graphs = True
     captured = []
 
-    def capture(body, device, index):
+    def capture(body, device, index, entry):
         captured.append(index)
         fixed = _tensors(cs._state.fixed)
         held = [t.clone() for t in fixed]
@@ -324,7 +357,7 @@ def two_sets_on_cpu(pipe) -> list:
             t.copy_(h)
         graph = CpuGraph(body, result)
         graph.first = False
-        return _Entry(graph, result, {})
+        return graph, result
 
     cs._capture = capture
     return captured
@@ -340,9 +373,10 @@ def batches_of(log) -> list:
 @pytest.mark.parametrize("frames", [6, 8, 7])  # odd, even, a short tail
 def test_two_output_sets_in_turns(frames, monkeypatch):
     """Greedy-H (state through the frames) in batches of 2 over two calls,
-    with the card's readback stream and events faked: each batch key
-    captured twice, its two output sets taken in turns from batch to batch
-    and across the calls, byte-equal to `run`; per batch the compute
+    with the card's readback stream and events faked: each batch key's two
+    output sets taken in turns from batch to batch and across the calls,
+    each captured at its first use (a tail's only set, its one turn in
+    each call), byte-equal to `run`; per batch the compute
     stream waits on the set's `_outputs_free`, records `_step_done` after
     the step, and the readback stream waits on it, copies each frame, the
     eager batch's pieces marked as used there first, and records the set's
@@ -356,8 +390,10 @@ def test_two_output_sets_in_turns(frames, monkeypatch):
     assert batched(pipe, (frames, frames), 2) == want
     cs = pipe.compiled
     keys = 1 + frames % 2  # a tail takes a key of its own
-    assert cs.batch_captures == keys and len(captured) == 2 * keys
-    assert all(len(e.sets) == 2 for e in cs._batches.values())
+    assert cs.batch_captures == keys
+    assert captured == [2, 4] + [6] * (frames % 2)
+    assert sorted(len(e.sets) for e in cs._batches.values()) == (
+        [1] * (frames % 2) + [2])
     assert cs.eager == 2  # batch 0: has_prev False on its first frame
     assert pipe.stats.readback_async == 2 * frames
     sizes = ([2] * (frames // 2) + [1] * (frames % 2)) * 2
@@ -374,24 +410,56 @@ def test_two_output_sets_in_turns(frames, monkeypatch):
                            + [("readback", "record", free)]), b
 
 
-@pytest.mark.parametrize("loop", ["run", "run_live", "mesh"])
+@pytest.mark.parametrize("loop", ["run", "run_live"])
+def test_the_frame_loops_read_back_on_the_readback_stream(loop, monkeypatch):
+    """`run` and `run_live` step batches of one frame through the same
+    loop: greedy-H over 8 frames with the readback stream and events faked
+    as above, frames 0 and 1 eager (has_prev False, then True), frame 2's
+    key's two output sets taken in turns frame by frame, captured at
+    frames 2 and 3,
+    byte-equal to the eager `run`; each frame hands the streams the order
+    of `test_two_output_sets_in_turns`, and `readback_async` counts every
+    frame."""
+    feeds = {"appsrc0": i420(8, 64, 36, 38)}
+    want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
+    pipe = fed(GREEDY, feeds, device="cpu")
+    captured = two_sets_on_cpu(pipe)
+    log = streams_on_cpu(monkeypatch, pipe)
+    if loop == "run":
+        got = run_frames(pipe, 8)
+    else:
+        assert pipe.run_live(8, time_fn=lambda: 0.0,
+                             sleep_fn=lambda s: None) == 8
+        got = [payload_bytes(f) for f in pipe["appsink0"].frames]
+    assert got == want
+    cs = pipe.compiled
+    assert captured == [2, 3] and cs.batch_captures == 1
+    assert (cs.eager, cs.batch_replays) == (2, 6)
+    assert pipe.stats.readback_async == 8
+    frames = batches_of(log)
+    assert len(frames) == 8
+    for b, got_log in enumerate(frames):
+        free = f"free{(b + 1) % 2}"
+        marks = [("readback", "record_stream")] * 3 if b < 2 else []
+        assert got_log == ([("compute", "wait", free),
+                            ("compute", "record", "step_done"),
+                            ("readback", "wait", "step_done")] + marks
+                           + [("readback", "copy"),
+                              ("readback", "record", free)]), b
+
+
+@pytest.mark.parametrize("loop", ["mesh"])
 def test_other_loops_read_back_on_the_compute_stream(loop, monkeypatch):
-    """With the readback stream faked as above, `run`, `run_live` and the
-    mesh path hand it nothing: their readbacks stay on the current
-    stream, and `readback_async` stays 0."""
+    """With the readback stream faked as above, the mesh path hands it
+    nothing: its readbacks stay on the current stream, and
+    `readback_async` stays 0."""
     feeds = {"appsrc0": i420(8, 64, 36, 38)}
     want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
     pipe = fed(GREEDY, feeds, device="cpu")
     log = streams_on_cpu(monkeypatch, pipe)
-    if loop == "run":
-        got = run_frames(pipe, 8)
-    elif loop == "run_live":
-        pipe.run_live(8, time_fn=lambda: 0.0, sleep_fn=lambda s: None)
-        got = [payload_bytes(f) for f in pipe["appsink0"].frames]
-    else:
-        pipe.run_batched(8, batch_size=4,
-                         mesh=make_mesh({"dp": 1}, devices=["cpu"]))
-        got = [payload_bytes(f) for f in pipe["appsink0"].frames]
+    pipe.run_batched(8, batch_size=4,
+                     mesh=make_mesh({"dp": 1}, devices=["cpu"]))
+    got = [payload_bytes(f) for f in pipe["appsink0"].frames]
     assert got == want
     assert log == [("compute", "copy")] * 8
     assert pipe.stats.readback_async == 0
@@ -448,10 +516,10 @@ def test_capture_broken_by_a_stage_names_it_at_the_batch():
                                "capturing")
         return real(*a)
 
-    def in_capture(body, device, index):
+    def in_capture(body, device, index, entry):
         capturing.append(True)
         try:
-            return capture(body, device, index)
+            return capture(body, device, index, entry)
         finally:
             capturing.clear()
 

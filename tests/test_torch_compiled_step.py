@@ -221,7 +221,7 @@ def test_run_equals_the_eager_step(label, desc, feeds, tffs, assets):
     want = eager_frames(fed(desc, feeds, tffs, device="cpu"), len(got))
     assert len(got) == FRAMES and got == want, label
     compiled = pipe.compiled
-    assert compiled.eager == FRAMES and compiled.captures == 0
+    assert compiled.eager == FRAMES and compiled.batch_captures == 0
     # greedy-H: has_prev False, then True; weave: that, then each TFF
     assert 1 <= compiled.keys <= 3
 
@@ -322,7 +322,7 @@ def test_alternating_tff_takes_two_keys(method, keys):
     pipe = fed(desc.replace("weave", method), feeds, tffs, device="cpu")
     pipe.run()
     assert pipe.compiled.keys == keys
-    flags = {k[1][0][1] for k in pipe.compiled._entries}
+    flags = {k[1][0][1] for k in pipe.compiled._after}  # the frame keys
     assert len(flags) == 2
 
 
@@ -383,11 +383,11 @@ def test_the_texture_does_not_alias_the_fixed_input():
     pipe.run(1)
     compiled = pipe.compiled
     prev = pipe.state["vfmetaldeinterlace0"]["prev"]
-    fixed = compiled._inputs["appsrc0"]
+    fixed = compiled.batch_inputs(1)["appsrc0"]
     lo, hi = fixed.data_ptr(), fixed.data_ptr() + fixed.numel()
     assert not lo <= prev.data_ptr() < hi
     assert torch.equal(prev, torch.from_numpy(frames[0]).permute(2, 0, 1))
-    compiled.upload("appsrc0", frames[1])  # the next upload
+    compiled.upload_rows([{"appsrc0": (1, {})}])  # the next upload
     assert torch.equal(prev, torch.from_numpy(frames[0]).permute(2, 0, 1))
 
 
@@ -553,7 +553,7 @@ def test_unnamed_fault_is_located_by_the_eager_rerun(where, stage_fails,
             st.process = process  # the re-run meets the failing stage
             raise RuntimeError("a device fault at the replay")
 
-        monkeypatch.setattr(pipe.compiled, "step", fault)
+        monkeypatch.setattr(pipe.compiled, "step_batch", fault)
         with pytest.raises(PipelineError) as info:
             pipe.run()
         assert info.value.frame_index == 0

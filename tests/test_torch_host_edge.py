@@ -186,6 +186,28 @@ def test_step_failure_flushes_the_last_good_frame(tmp_path):
     assert out.read_bytes() == b"".join(f.tobytes() for f in want)
 
 
+def test_a_failed_rebuild_flushes_the_last_good_frame(tmp_path,
+                                                      monkeypatch):
+    """A controlled write that rebuilds at frame 2, the build failing:
+    frame 1, the last good frame, is delivered before the error, as after
+    a failed step."""
+    out = tmp_path / "out.bgra"
+    pipe = parse_pipeline(FILTER + f"filesink location={out}", device="cpu")
+    pipe.build()
+    pipe["vfmetalvideofilter0"].control("hue", [0.0, 0.0, 0.3, 0.3],
+                                        allow_structure_change=True)
+
+    def build():
+        raise RuntimeError("injected rebuild failure")
+
+    monkeypatch.setattr(pipe, "build", build)
+    with pytest.raises(RuntimeError, match="injected rebuild failure"):
+        pipe.run()
+    pipe["filesink0"].finalize()  # the application closes the sink
+    want = _sync_reference(FILTER + "appsink", 2)
+    assert out.read_bytes() == b"".join(f.tobytes() for f in want)
+
+
 def test_sink_failure_reports_the_consumed_frame():
     pipe = parse_pipeline(FILTER + "appsink", device="cpu")
     sink = pipe["appsink0"]

@@ -179,6 +179,39 @@ def test_a_fresh_array_per_frame_is_never_registered_nor_kept():
     assert fake.registered == [] and len(reg._roots) == 0
 
 
+def test_rows_of_one_fresh_frame_in_a_batch_are_one_sighting(monkeypatch,
+                                                              tmp_path):
+    """Batches of 8 at 60 fps over a compositor whose second file source (a
+    fresh array a frame) runs at 5 fps: its frame fills several rows of a
+    batch, some of which hold it already, and the compiled step uploads the
+    source's rows in one call, so that frame is one sighting and nothing is
+    registered (the CUDA path's registry injected on the CPU)."""
+    reg, fake = registry()
+    real = HostLayout.upload_into
+
+    def upload_into(self, frames, out, edge=None, index=None, registry=None):
+        return real(self, frames, out, edge, index, reg)
+
+    monkeypatch.setattr(HostLayout, "upload_into", upload_into)
+    paths = []
+    for k, (spec, n) in enumerate(((NV12, 24),
+                                   (FrameSpec(VideoFormat.BGRA, 8, 4), 2))):
+        _, frames = pool(spec, n, seed=40 + k)
+        paths.append(tmp_path / f"in{k}.raw")
+        paths[-1].write_bytes(b"".join(row_bytes(f, spec).tobytes()
+                                       for f in frames))
+    pipe = parse_pipeline(
+        "vfmetalcompositor name=c sink_1::xpos=4 ! video/x-raw,format=BGRA,"
+        "width=16,height=8 ! appsink "
+        f"rawvideosrc location={paths[0]} format=NV12 width=16 height=8 "
+        "! video/x-raw,framerate=60/1 ! c.sink_0 "
+        f"rawvideosrc location={paths[1]} format=BGRA width=8 height=4 "
+        "! video/x-raw,framerate=5/1 ! c.sink_1", device="cpu")
+    pipe.run_batched(24, batch_size=8)
+    assert fake.registered == [] and reg._held == {}
+    assert (pipe.stats.upload_direct, pipe.stats.upload_filled) == (0, 48)
+
+
 @pytest.mark.parametrize("case", ["read_only", "not_contiguous", "failed"])
 def test_fill_path_and_no_retry(case):
     reg, fake = registry(code=1 if case == "failed" else 0)

@@ -1,120 +1,118 @@
-"""The compiled step: a frame's, a batch's or a dp shard's whole step over
-fixed buffers, captured once per key as a CUDA graph and replayed (the port
-of tpuvf's ``jax.jit(make_step(...), donate_argnums=(1,))``, its one
-program per variant, ``_variant_step``/``_select_step``, its one program a
-batch, ``jax.jit(batch_step)`` over ``lax.scan``, the per-shard scan inside
+"""The compiled step: a batch's or a dp shard's whole step over fixed
+buffers, captured once per key as a CUDA graph and replayed; a frame of
+`Pipeline.run` and `run_live` is a batch of one (the port of tpuvf's
+``jax.jit(make_step(...), donate_argnums=(1,))``, its one program per
+variant, ``_variant_step``/``_select_step``, its one program a batch,
+``jax.jit(batch_step)`` over ``lax.scan``, the per-shard scan inside
 ``parallel_batch_fn``'s ``shard_map``, and ``_locate_failure``;
 ``tpuvf/runtime/pipeline.py:344-498``, ``:1847-1891``, ``:2012-2039``,
 ``tpuvf/parallel/mesh.py:74-192``).
 
-A **frame's body** is `Pipeline.step_sources`' walk over the DAG, run on
-buffers that stay put from frame to frame:
+A **batch's body** (`step_batch`, every frame loop but the mesh's) runs n
+frames' bodies back to back, each `Pipeline.step_sources`' walk over the
+DAG, on buffers that stay put from batch to batch:
 
-- **inputs**: each source's host-layout bytes land in a fixed device buffer
-  (`upload`, `upload_rows`, ``HostLayout.upload_into``): a frame from a
-  source's recurring frame pool, page-locked once by the pipeline's
-  ``HostRegistry``, is copied straight from the source's arrays; any other
-  through one host copy into a fresh pinned buffer and one non-blocking
-  copy.  On CUDA those copies run on a copy stream of the step's own,
-  ordered by two events: the copy stream waits on `_inputs_free`, recorded
-  on the compute stream right after the last step that read the fixed
-  inputs (before its readback is enqueued, so a batch's upload runs beside
-  the previous batch's readback), and the compute stream waits on
-  `_inputs_ready`, recorded after the copies, before the next step.  The
-  split into canonical planes (``from_host_layout``) runs inside the body;
-- **params**: the frame's staged scalars land in one fixed float32 row,
-  and every compositor's draw table in one fixed int32 row
+- **inputs**: n fixed input rows a source (`batch_inputs`): each frame's
+  host-layout bytes land in its row (`upload_rows`,
+  ``HostLayout.upload_into``): a frame from a source's recurring frame pool,
+  page-locked once by the pipeline's ``HostRegistry``, is copied straight
+  from the source's arrays; any other through one host copy into a fresh
+  pinned buffer and one non-blocking copy.  A source whose rows all hold
+  their buffers already (the step records each row's buffer index,
+  cleared at the start of every loop call, `forget_uploads`) is neither
+  generated nor uploaded again.  On CUDA those copies run on a copy
+  stream of the step's own, ordered by two events: the copy stream waits
+  on `_inputs_free`, recorded on the compute stream right after the last
+  step that read the fixed inputs (before its readback is enqueued, so an
+  upload runs beside the previous batch's readback), and the compute
+  stream waits on `_inputs_ready`, recorded after the copies, before the
+  next step.  The split into canonical planes (``from_host_layout``) runs
+  inside the body;
+- **params**: the frames' staged scalars land in one fixed (n, k) float32
+  block, and every compositor's draw table in one fixed (n, T) int32 block
   (``kernels/composite.py``), by one pinned non-blocking copy each, made
   outside the body on the compute stream and skipped while nothing changed
-  (`stage`, `_ParamRows`).  They are written in place: the steps on that
-  stream read them in order;
-- **state**: the carried state is read from fixed buffers and, at the end
-  of the body, copied back into them (``copy_``), so no state buffer
-  aliases an input or an output (vfdeinterlace carries an RGB input's
-  planes as its texture).  A state handed in that is not the fixed
+  (`stage_batch`, `_ParamRows`), frame j reading row j, so a ramp is data,
+  not a key.  They are written in place: the steps on that stream read
+  them in order;
+- **state**: the carried state is read from fixed buffers, runs through
+  the n frames inside the body (frame j+1 reads what frame j left) and is
+  copied back into the fixed buffers once, at the end (``copy_``), so no
+  state buffer aliases an input or an output (vfdeinterlace carries an RGB
+  input's planes as its texture).  A state handed in that is not the fixed
   buffers (a rebuild's carry, a mesh run's, a caller's) is copied in first;
 - **outputs**: each sink's ``device_payload`` (the host-layout permutation,
-  a vfvideosink's render) runs inside the body; its pieces are the graph's
-  own buffers, which the caller copies to the host right after the replay.
-  A frame's readback runs on the compute stream, before the next replay
-  can write them; a batch's runs on a readback stream of the step's own
-  over two output sets (below).  On CUDA a piece that would be a view of
-  the fixed inputs (a plane a chain passes on as it came in) is copied
-  inside the body (`_unaliased`): its readback follows `_inputs_free`, so
-  the next upload may already be writing those inputs.
+  a vfvideosink's render) runs inside the body; its pieces, n sets of them,
+  are the graph's own buffers, which the caller copies to the host right
+  after the replay.  On CUDA a piece that would be a view of the fixed
+  inputs (a plane a chain passes on as it came in) is copied inside the
+  body (`_unaliased`): its readback follows `_inputs_free`, so the next
+  upload may already be writing those inputs.
 
-A **batch's body** (`step_batch`, `Pipeline.run_batched` without a mesh)
-runs n frames' bodies back to back over n sets of those buffers: n fixed
-input rows a source, one (n, k) float32 scalar block and one (n, T) int32
-table block (`stage_batch`, one copy each), frame j reading row j, so a
-ramp within a batch is data, not a key.  The state runs through the n
-frames inside the body (frame j+1 reads what frame j left) and is copied
-back into the fixed state buffers once, at the end.  Each frame's
-payloads are the graph's own buffers, n sets of them.
-
-On CUDA a batch key's body is captured twice at once, two graphs over the
-same fixed inputs, params and state, each with its own payloads: two
-output sets, which the batches take in turns (`_turn`), so a batch's
-readback runs on the step's readback stream (`reading_back`) beside the
-next batch's replay.  Three events order them: the readback stream waits
-on `_step_done`, recorded on the compute stream right after the batch's
-step (where `_inputs_free` is), before it copies the batch's payloads;
+On CUDA a key has two graphs over the same fixed inputs, params and
+state, each with its own payloads: two output sets, which the batches take
+in turns (`_turn`), each captured at its first use, so a batch's readback
+runs on the step's readback stream (`reading_back`) beside the next
+batch's replay.  Three events order
+them: the readback stream waits on `_step_done`, recorded on the compute
+stream right after the batch's step (where `_inputs_free` is), before it
+copies the batch's payloads;
 `_outputs_free` of the set is recorded on the readback stream after the
 copies, and the compute stream waits on it before the set's next replay,
-two batches later; each frame's event (``Pipeline._readback``) is
-recorded on the readback stream.  The replays, and so the write-back of
-the state, stay in order on the compute stream.  An eager batch's
-payloads come from the caching allocator on the compute stream, so each
-piece is marked as used on the readback stream (``record_stream``) before
-its copy.  `Pipeline.run_batched` waits on batch b's events, handing it
-to the sinks, before it enqueues batch b+2, so its order alone keeps
-batch b's copies ahead of the replay that writes their set again and of
-the reuse of their memory; `_outputs_free` and ``record_stream`` keep the
-step right for a caller that waits later.  A frame's step and a shard's
-keep one set and read back on their current stream.
+two batches later; each frame's event (``Pipeline._readback``) is recorded
+on the readback stream.  The replays, and so the write-back of the state,
+stay in order on the compute stream.  An eager batch's payloads come from
+the caching allocator on the compute stream, so each piece is marked as
+used on the readback stream (``record_stream``) before its copy.  The
+frame loop waits on batch b's events, handing it to the sinks, before it
+enqueues batch b+2, so its order alone keeps batch b's copies ahead of the
+replay that writes their set again and of the reuse of their memory;
+`_outputs_free` and ``record_stream`` keep the step right for a caller
+that waits later.
 
 A **dp shard's body** (`ShardStep`, `Pipeline.run_batched(mesh=...)`) is
 the shard's sub-batch (``batch_size/dp`` frames) through
 `Pipeline._step_bands`, its bands included, over the shard's own fixed
-input rows on its first card (uploaded through a host copy on the
-current stream: no copy stream, no registered memory), each mesh card's
-(n, k)/(n, T) param rows and its per-band state tiles, with the same
-write-back.  Its graph is captured on the shard's first card and replayed
-on that card's current stream, so shards on different cards run at once.
-A shard whose bands lie on several distinct cards gathers halo rows across
-cards, which one card's capture cannot hold: such a shard runs its body
-eagerly every batch, and each of its frames counts in `eager`.
+input rows on its first card (`ShardStep.upload_rows`: every row through a
+host copy on the current stream, no copy stream, no registered memory),
+each mesh card's (n, k)/(n, T) param rows and its per-band state tiles,
+with the same write-back.  The shard is the one step that keeps one output
+set and reads back on its current stream.  Its graph is captured on the
+shard's first card and replayed on that card's current stream, so shards
+on different cards run at once.  A shard whose bands lie on several
+distinct cards gathers halo rows across cards, which one card's capture
+cannot hold: such a shard runs its body eagerly every batch, and each of
+its frames counts in `eager`.
 
 On CUDA a body is captured as a ``torch.cuda.CUDAGraph`` on a side
 stream of its card and replayed on the current stream; nothing is run by
 the capture itself, its replay runs it.  Work done at first use (the
 kernel library, the launchers' per-card attribute and occupancy caches,
 a vfvideosink's render plan) may not happen during a capture, so every
-frame key runs once eagerly first:
+frame key runs once eagerly first.  A batch graph's key is ``(n, the n
+frame keys)``, a shard graph's adds the mesh layout's key, the shard and
+its cards.  Each frame key there is its frame's with the state key the
+previous frame's key leaves, learnt (`_after`) when that key last ran
+eagerly.  A batch whose frame keys are all known is captured at once and
+replayed; one with an unknown frame key runs eagerly and learns them.  So
+a frame (a batch of one) is captured on its key's second sighting; a
+16-frame call in batches of 8 runs batch 0 eagerly and captures batch 1,
+greedy-H's included (its first batch carries ``has_prev=False`` on frame
+0 and so has another key than its second); a call after `run` has seen
+the chain's keys captures its first batch; a short tail (n < batch_size)
+takes its own key, as tpuvf re-traces for a shorter tail.
 
-- a frame graph's key (`_key`) is captured on its second frame and
-  replayed after;
-- a batch graph's key is ``(n, the n frame keys)``, a shard graph's adds
-  the mesh layout's key, the shard and its cards.  Each frame key there
-  is its frame's with the state key the previous frame's key leaves,
-  learnt (`_after`) when that key last ran eagerly.  A batch whose frame
-  keys are all known is captured at once and replayed; one with an
-  unknown frame key runs eagerly and learns them.  So a 16-frame call
-  in batches of 8 runs batch 0 eagerly and captures batch 1, greedy-H's
-  included (its first batch carries ``has_prev=False`` on frame 0 and so
-  has another key than its second); a call after `run` has seen the
-  chain's keys captures its first batch;
-- a short tail (n < batch_size) takes its own key, as tpuvf re-traces for
-  a shorter tail.
-
-Before a capture, as ``torch.cuda.graph`` does, the cyclic garbage
-collector runs and the allocator's cache is emptied, and the collector
-stays off during the capture: a dead pipeline's graphs, events or pinned
-buffers freed inside a capture would invalidate it.  `graphs` is False on
-the CPU, where every body runs eagerly over the same fixed buffers, so the
-CPU tests exercise the buffers, the keys, the state threading and
-write-back and the draw tables; only the capture needs the card.  The
-reference runs of the card's checks set it False too.
+Before a key's first capture, as ``torch.cuda.graph`` does, the cyclic
+garbage collector runs and the allocator's cache is emptied, and the
+collector stays off during every capture: a dead pipeline's graphs,
+events or pinned buffers freed inside a capture would invalidate it.  A
+key's other output set is captured at its own first use without them: on
+a cold live run the collection and the emptied cache take most of the
+first capture's tick, the set's capture a few milliseconds.  `graphs` is
+False on the CPU, where every body runs eagerly over the same fixed
+buffers, so the CPU tests exercise the buffers, the keys, the state
+threading and write-back and the draw tables; only the capture needs the
+card.  The reference runs of the card's checks set it False too.
 
 **The key** of a frame holds whatever the launches take by value: the
 static signature, each source's buffer flags (``__meta__``, e.g.
@@ -129,34 +127,32 @@ replays one graph.  A vfvideosink's window change
 rebuild does.
 
 **Memory.**  Each graph holds its intermediates and its outputs in a
-private memory pool of the caching allocator: a batch graph n frames'
-worth (n payload sets), beside the n fixed input rows of its batch size;
-a batch key on CUDA has two such graphs, its two output sets.  At most
-`MAX_GRAPHS` frame keys and, on a limit of their own, `MAX_BATCH_GRAPHS`
-batch and shard keys keep their graphs (the least recently used goes
-first): a capture costs a collection and an emptied cache (100-600 ms on
-the card), so the limit leaves room for a full batch's and a tail's key
-on each shard of a four-card mesh.
+private memory pool of the caching allocator: n frames' worth (n payload
+sets), beside the n fixed input rows of its batch size; a key on CUDA has
+two such graphs, its two output sets.  At most `MAX_GRAPHS` batch and
+shard keys keep their graphs (the least recently used goes first): a
+key's first capture costs a collection and an emptied cache (100-600 ms
+on the card), so the limit leaves room for a full batch's and a tail's
+key on each shard of a four-card mesh.
 
-**Counters.**  `keys` (frame keys learnt), `captures` and `replays` (frame
-graphs), `batch_captures` and `batch_replays` (batch and shard keys
-captured, and replays of their graphs) and `eager` (frames run without a
-graph) count the step's work; each capture's wall time adds to
-``PipelineStats.compile_seconds``.  A replay runs no Python, so each key
-records the kernel launches its capture made (each wrapper's
-``launches``; a batch graph n frames' worth; a second output set's
-capture is taken back off the counters) and adds them to the counters at
-every replay after the first, which runs the captured body itself.  The
-frames read back on the readback stream add to
+**Counters.**  `keys` (frame keys learnt), `batch_captures` and
+`batch_replays` (keys captured, and replays of their graphs) and `eager`
+(frames run without a graph) count the step's work; `captures` and
+`replays` stay 0 (``vfbench/harness.py`` reads them by name).  Each
+capture's wall time adds to ``PipelineStats.compile_seconds``.  A replay
+runs no Python, so each key records the kernel launches a capture made
+(each wrapper's ``launches``, n frames' worth), which stay counted for
+the replay right after the capture, and adds them to the counters at
+every other replay.  The frames read back on the readback stream add to
 ``PipelineStats.readback_async``.
 
 **Failures.**  A capture that an element's op breaks raises
-``PipelineError`` naming that element at its frame (`Pipeline.
-step_sources` wraps each stage; a batch's frames carry the batch's first
-index, as tpuvf's one dispatch a batch does); nothing then runs the step
-eagerly in its place.  A fault that surfaces at a replay, or at the wait
-on its event, names no stage: the pipeline re-runs the frame (a batch's
-first frame) eagerly on fresh state (`Pipeline._locate_failure`, tpuvf's
+``PipelineError`` naming that element at its batch's first frame
+(`Pipeline.step_sources` wraps each stage; a batch's frames carry the
+batch's first index, as tpuvf's one dispatch a batch does); nothing then
+runs the step eagerly in its place.  A fault that surfaces at a replay, or
+at the wait on its event, names no stage: the pipeline re-runs the batch's
+first frame eagerly on fresh state (`Pipeline._locate_failure`, tpuvf's
 twin) and names the element whose op fails.  What stays eager:
 `Pipeline.step`/`step_sources`, and the shards over several cards.
 """
@@ -177,7 +173,7 @@ from tpuvf_torch.elements.compositor import DRAW_TABLE
 from tpuvf_torch.kernels import (composite, deinterlace, emit, lut, overlay,
                                  resample)
 from tpuvf_torch.runtime.device import on_device
-from tpuvf_torch.runtime.observability import PipelineError
+from tpuvf_torch.runtime.observability import PipelineError, trace
 from tpuvf_torch.runtime.staging import ParamStager
 
 META = "__meta__"
@@ -297,6 +293,20 @@ def _input_rows(layouts: Dict[str, HostLayout], device, n: int):
                    for name, flat in flats.items()}
 
 
+def _host_frames(pipe, name: str, buffers, index) -> list:
+    """Source `name`'s host frames of `buffers` (buffer indices), a buffer
+    that several rows take generated once (span
+    ``tpuvf_torch.upload.source``, `index` in its args)."""
+    src = pipe[name]
+    spec = pipe._source_spec(src)
+    hosts = {}
+    with trace("tpuvf_torch.upload.source", pipe.stats.edge_seconds, index):
+        for j in buffers:
+            if j not in hosts:
+                hosts[j] = src.generate(j, spec)
+    return [hosts[j] for j in buffers]
+
+
 def _unaliased(payloads, flats) -> list:
     """`_payloads` ([(sink, layout, pieces)]) with each piece that shares
     storage with one of `flats`, the fixed inputs, replaced by its copy: a
@@ -370,12 +380,13 @@ class _ParamRows:
 class _Entry:
     """One key's captured graphs, each with what its capture's body
     returned (its outputs and the state it leaves: the graph's own
-    buffers), as `sets`: one, or a batch key's two output sets on CUDA
-    (module doc); and the launches one capture made."""
+    buffers), as `sets` {output set: (graph, result)}: a batch key's two
+    on CUDA, a shard key's one (module doc); and the launches a capture
+    made."""
 
-    def __init__(self, graph, result, launches):
-        self.sets = [(graph, result)]
-        self.launches = launches
+    def __init__(self):
+        self.sets: Dict[int, tuple] = {}
+        self.launches: Dict = {}
 
     def count(self) -> None:
         """A replay's launches -> the kernels' counters."""
@@ -385,15 +396,13 @@ class _Entry:
 
 class CompiledStep:
     """The steps of one build of `pipe` over fixed buffers on its devices
-    (module doc): `run` and `run_live` step a frame through `step`,
-    `run_batched` a batch through `step_batch`, and on a mesh each dp
-    shard's sub-batch through `shard`'s `ShardStep`.  `Pipeline.step`/
-    `step_sources` stay eager.  At most `MAX_GRAPHS` frame graphs and
-    `MAX_BATCH_GRAPHS` batch and shard graphs are kept.  With `graphs`
-    False (the CPU) every body runs eagerly."""
+    (module doc): the frame loops step a batch, a frame being a batch of
+    one, through `step_batch`, and on a mesh each dp shard's sub-batch
+    through `shard`'s `ShardStep`.  `Pipeline.step`/`step_sources` stay
+    eager.  At most `MAX_GRAPHS` batch and shard keys keep their graphs.
+    With `graphs` False (the CPU) every body runs eagerly."""
 
-    MAX_GRAPHS = 8
-    MAX_BATCH_GRAPHS = 16  # a batch and a tail key a shard on 4 cards
+    MAX_GRAPHS = 16  # a batch and a tail key a shard on 4 cards
 
     def __init__(self, pipe):
         self.pipe = pipe
@@ -401,7 +410,6 @@ class CompiledStep:
         self.graphs = self.device.type == "cuda"
         self.keys = self.captures = self.replays = self.eager = 0
         self.batch_captures = self.batch_replays = 0
-        self._entries: "OrderedDict[tuple, Optional[_Entry]]" = OrderedDict()
         self._batches: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._after: Dict[tuple, tuple] = {}  # frame key -> state key after
         self._stager = ParamStager(self.device)
@@ -414,7 +422,7 @@ class CompiledStep:
             self._inputs_free = torch.cuda.Event()
             self._inputs_ready = torch.cuda.Event()
         self._reads_source = False  # the last upload copied a source's own
-        # the batch readback's stream and its events (module doc), CUDA only
+        # the readback's stream and its events (module doc), CUDA only
         self._readback = self._step_done = None
         self._outputs_free = ()
         if self.device.type == "cuda":
@@ -424,7 +432,8 @@ class CompiledStep:
         self._turn = 0  # the output set of the last batch
         self._eager_out = False  # the last batch's payloads are not a graph's
         self._rows: Dict[int, tuple] = {}  # n -> _input_rows
-        self._inputs = self.batch_inputs(1)  # a frame's fixed inputs
+        # (n, source name) -> the buffer indices its n rows hold
+        self._uploaded: Dict[tuple, list] = {}
         self._aggs = pipe._table_layout()  # [(stage, offset, size)]
         self._agg_names = {st.element.name for st, _, _ in self._aggs}
         self._params_at: Dict[tuple, _ParamRows] = {}  # (device, n)
@@ -444,20 +453,37 @@ class CompiledStep:
                     flat.record_stream(self._copy)
         return self._rows[n][0]
 
-    def upload(self, name: str, host_frame, index=None) -> None:
-        """Source `name`'s host frame -> its fixed input (a frame's)
-        (`upload_rows`)."""
-        self.upload_rows(name, [host_frame], self._inputs[name], index)
+    def forget_uploads(self) -> None:
+        """Forget which buffer each fixed input row holds: the next upload
+        writes every row (a frame loop's call starts with this)."""
+        self._uploaded.clear()
 
-    def upload_rows(self, name: str, host_frames, out: torch.Tensor,
-                    index=None) -> None:
-        """Source `name`'s host frames -> the rows of `out`, fixed inputs of
-        this step (``HostLayout.upload_into`` with the pipeline's
-        ``HostRegistry``): on CUDA on the copy stream, after the last step
-        that read the fixed inputs and before the next (module doc).  The
-        frames copied straight from the source's memory and those filled
-        add to the pipeline's `upload_direct` and `upload_filled`; the spans
-        add to its `edge_seconds`, `index` in their args."""
+    def upload_rows(self, selections, index=None) -> None:
+        """Each frame's picked buffers (``Pipeline._select_buffers``, one a
+        frame) -> its row of `batch_inputs(n)`, after the copies the last
+        upload read from a source's memory (`await_copies`).  A source
+        whose rows all hold their buffers already is skipped; of any other
+        every row's buffer is generated (`_host_frames`) and copied by one
+        ``HostLayout.upload_into`` with the pipeline's ``HostRegistry``:
+        on CUDA on the copy stream, after the last step that read the fixed
+        inputs and before the next (module doc).  The frames copied
+        straight from the source's memory and those filled add to the
+        pipeline's `upload_direct` and `upload_filled`; the spans add to
+        its `edge_seconds`, `index`, the batch's first frame, in their
+        args."""
+        self.await_copies()
+        n = len(selections)
+        for name, flat in self.batch_inputs(n).items():
+            want = [sel[name][0] for sel in selections]
+            if self._uploaded.get((n, name)) == want:
+                continue
+            self._upload(name, _host_frames(self.pipe, name, want, index),
+                         flat, index)
+            self._uploaded[(n, name)] = want
+
+    def _upload(self, name: str, host_frames, out: torch.Tensor,
+                index) -> None:
+        """Source `name`'s host frames -> the rows `out` (`upload_rows`)."""
         stats = self.pipe.stats
         layout = self._layouts[name]
         if self._copy is None:
@@ -476,7 +502,7 @@ class CompiledStep:
 
     def await_copies(self) -> None:
         """Wait until the copies read straight from a source's memory are
-        done, so that the source may reuse that memory: the run loops call
+        done, so that the source may reuse that memory: `upload_rows` calls
         this before a source hands out its next frames.  By then the copies
         have mostly ended beside the previous readback."""
         if self._reads_source:
@@ -506,11 +532,6 @@ class CompiledStep:
             self._params_at[key] = _ParamRows(key[0], n, self._aggs)
         return self._params_at[key]
 
-    def stage(self, reads, metas, index=None) -> None:
-        """This frame's scalars and draw tables -> its fixed rows; `index`,
-        the frame's, rides in the span of its tables."""
-        self.stage_batch([reads], [metas], index)
-
     def stage_batch(self, rows, metas, index=None) -> None:
         """A batch's scalars and draw tables, one frame a row -> the fixed
         rows of its size, one copy each (`_ParamRows.stage`); `index`, the
@@ -530,7 +551,6 @@ class CompiledStep:
         """A sink's render plan changed: its graphs and learnt keys go."""
         sink_keys = self._payload_keys()
         if sink_keys != self._sink_keys:
-            self._entries.clear()
             self._batches.clear()
             self._after.clear()
             self._sink_keys = sink_keys
@@ -573,51 +593,7 @@ class CompiledStep:
         state seen); -> the state the body reads."""
         return self._state.load(state)
 
-    # -- the frame step -------------------------------------------------------
-
-    def _body(self, reads, metas, state, index: int):
-        payloads, state = self._batch_body([reads], [metas], state, index)
-        return payloads[0], state
-
-    def step(self, reads, metas, state, index: int):
-        """Frame `index`'s step over the fixed buffers (inputs uploaded,
-        params staged): -> ([(sink, layout, device pieces)], the carried
-        state).  Eager on a key's first frame and without `graphs`; else
-        the key's graph, captured on its second frame."""
-        self._check_sinks()
-        state = self._load_state(state)
-        key = self._key(reads, metas, _tree_key(state))
-
-        def body():
-            return self._body(reads, metas, state, index)
-
-        return self._over_inputs(lambda: self._step(key, body, index))
-
-    def _step(self, key, body, index: int):
-        """Frame key `key`'s eager run, capture or replay of `body`."""
-        if key not in self._entries:  # the key's first frame: eager
-            self._entries[key] = None
-            while len(self._entries) > self.MAX_GRAPHS:
-                self._entries.popitem(last=False)
-            self.eager += 1
-            return body()
-        self._entries.move_to_end(key)
-        if not self.graphs:
-            self.eager += 1
-            return body()
-        entry = self._entries[key]
-        if entry is None:  # the second frame: capture, then replay
-            entry = self._entries[key] = self._capture(body, self.device,
-                                                       index)
-            self.captures += 1
-        else:
-            entry.count()
-        graph, result = entry.sets[0]
-        graph.replay()
-        self.replays += 1
-        return result
-
-    # -- the batch step -------------------------------------------------------
+    # -- the step -------------------------------------------------------------
 
     def _batch_body(self, rows, metas, state, index: int):
         """n frames' bodies over the fixed rows of a batch of n, the state
@@ -641,8 +617,8 @@ class CompiledStep:
         return out, self._state.back(state)
 
     def step_batch(self, rows, metas, state, index: int):
-        """A batch's steps (inputs in `batch_inputs(n)`, params staged by
-        `stage_batch`), `index` its first frame's: -> ([each frame's
+        """A batch's steps (inputs uploaded by `upload_rows`, params staged
+        by `stage_batch`), `index` its first frame's: -> ([each frame's
         [(sink, layout, device pieces)]], the carried state).  One replay
         of the batch key's graph; eager while a frame key is unknown and
         without `graphs`.  On CUDA the batches take the two output sets in
@@ -655,15 +631,15 @@ class CompiledStep:
             _tree_key(state))
         key = None if keys is None else ("batch", len(rows), keys)
         self._eager_out = key is None or not self.graphs
-        turn = None
+        stream = None
         if self._readback is not None:
-            turn = self._turn = 1 - self._turn
+            self._turn = 1 - self._turn
             stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(self._outputs_free[turn])
+            stream.wait_event(self._outputs_free[self._turn])
         out = self._over_inputs(lambda: self._run_batch(
             key, lambda: self._batch_body(rows, metas, state, index),
-            self.device, len(rows), index, turn))
-        if turn is not None:
+            self.device, len(rows), index, self._turn))
+        if stream is not None:
             self._step_done.record(stream)
         return out
 
@@ -691,31 +667,27 @@ class CompiledStep:
         self.pipe.stats.readback_async += len(outs)
 
     def _run_batch(self, key, body, device, frames: int, index: int,
-                   turn: Optional[int] = None):
+                   turn: int = 0):
         """`body` (`frames` frames): eager while `key` is None and without
-        `graphs`, else `key`'s graph, captured at its first use, then
-        replayed; -> what the body returns.  With `turn` (0 or 1), the
-        key's body is captured twice, two output sets, and set `turn`
-        replays."""
+        `graphs`, else the graph of `key`'s output set `turn`, captured at
+        the set's first use (the key's first capture after a collection),
+        then replayed; -> what the body returns."""
         if key is None or not self.graphs:
             self.eager += frames
             return body()
-        entry = self._batches.get(key)
-        if entry is None:
-            entry = self._capture(body, device, index)
-            if turn is not None:
-                twin = self._capture(body, device, index)
-                entry.sets += twin.sets
-                for wrapper, n in twin.launches.items():  # counted at replays
-                    wrapper.launches -= n
+        entry = self._batches.get(key) or _Entry()
+        if turn in entry.sets:
+            entry.count()
+        else:
+            entry.sets[turn] = self._capture(body, device, index, entry)
+        if key in self._batches:
+            self._batches.move_to_end(key)
+        else:
             self.batch_captures += 1
             self._batches[key] = entry
-            while len(self._batches) > self.MAX_BATCH_GRAPHS:
+            while len(self._batches) > self.MAX_GRAPHS:
                 self._batches.popitem(last=False)
-        else:
-            self._batches.move_to_end(key)
-            entry.count()
-        graph, result = entry.sets[turn or 0]
+        graph, result = entry.sets[turn]
         graph.replay()
         self.batch_replays += 1
         return result
@@ -732,11 +704,15 @@ class CompiledStep:
 
     # -- the capture ----------------------------------------------------------
 
-    def _capture(self, body, device, index: int) -> _Entry:
-        """Capture `body` as a CUDA graph on a side stream of `device` (not
-        run: its replay runs it).  A failure raises PipelineError naming
-        the element whose op broke the capture, else "<pipeline>", at
-        frame `index`.  The capture is begun and ended by hand, so a
+    def _capture(self, body, device, index: int, entry: _Entry) -> tuple:
+        """Capture `body` as one of `entry`'s CUDA graphs on a side stream
+        of `device` (not run: its replay runs it), after a synchronize and,
+        before the key's first graph, a collection and an emptied cache;
+        the collector stays off during the capture.  -> (graph, what the
+        body returned); the capture's launches stay counted, for the replay
+        that follows, and are `entry`'s.  A failure raises PipelineError
+        naming the element whose op broke the capture, else "<pipeline>",
+        at frame `index`.  The capture is begun and ended by hand, so a
         capture that fails still restores the current stream."""
         counters = launch_counters()
         before = [w.launches for w in counters]
@@ -744,11 +720,13 @@ class CompiledStep:
         failed = None
         t0 = time.perf_counter()
         torch.cuda.synchronize(device)
-        # as torch.cuda.graph does: dead objects (another pipeline's graphs,
-        # events, pinned buffers) are freed now, and the collector stays off
-        # during the capture, where such a free invalidates it
-        gc.collect()
-        torch.cuda.empty_cache()
+        if not entry.sets:
+            # as torch.cuda.graph does: dead objects (another pipeline's
+            # graphs, events, pinned buffers) are freed now, and the
+            # collector stays off during the capture, where such a free
+            # invalidates it
+            gc.collect()
+            torch.cuda.empty_cache()
         collecting = gc.isenabled()
         gc.disable()
         if device not in self._streams:
@@ -774,14 +752,15 @@ class CompiledStep:
             if isinstance(failed, PipelineError):
                 raise failed
             raise PipelineError("<pipeline>", index, failed) from failed
-        launches = {w: w.launches - b for w, b in zip(counters, before)
-                    if w.launches != b}
-        return _Entry(graph, result, launches)
+        entry.launches = {w: w.launches - b for w, b in zip(counters, before)
+                          if w.launches != b}
+        return graph, result
 
 
 class ShardStep:
     """One dp shard of a mesh layout over fixed buffers (module doc): its
-    sub-batch's input rows on its first card (`inputs`), its bands' state
+    sub-batch's input rows on its first card (`inputs`, `upload_rows`),
+    one output set read back on its current stream, its bands' state
     tiles; the param rows are the compiled step's, one set a card.  Its
     frame keys add the layout's key and the shard's cards to a frame's;
     its graph key adds the shard itself, its frames' rows and the batch's
@@ -807,6 +786,19 @@ class ShardStep:
             self._rows[m] = _input_rows(self.compiled._layouts,
                                         self.device, m)
         return self._rows[m][0]
+
+    def upload_rows(self, selections, index=None) -> None:
+        """Each of the shard's frames' picked buffers -> its row of
+        `inputs(m)`, every row, per source one host copy and one
+        non-blocking copy on the current stream (module doc); the frames
+        add to the pipeline's `upload_filled`."""
+        stats = self.pipe.stats
+        for name, flat in self.inputs(len(selections)).items():
+            frames = _host_frames(self.pipe, name,
+                                  [sel[name][0] for sel in selections], index)
+            self.compiled._layouts[name].upload_into(
+                frames, flat, stats.edge_seconds, index)
+            stats.upload_filled += len(frames)
 
     def _frame_key(self, reads, metas, state_key) -> tuple:
         return (self.key[0], self.devices) + self.compiled._key(

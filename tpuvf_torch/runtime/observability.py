@@ -120,7 +120,7 @@ class PipelineStats:
     # filled)
     upload_direct: int = 0
     upload_filled: int = 0
-    # frames `run_batched` read back on the compiled step's readback stream
+    # frames the loops read back on the compiled step's readback stream
     # (CUDA, no mesh), beside the next batch's step
     readback_async: int = 0
     # host seconds of each part of the run loops' frame edge (EDGE_PARTS),

@@ -20,8 +20,9 @@
 - **Run**: an output clock at the fastest branch tail's frame rate picks,
   for each output frame, every source's latest buffer whose pts is due
   (repeating or dropping as the rates differ; the GstVideoAggregator
-  model).  Each picked host frame is uploaded once and split into
-  canonical planes on the device, and reused while it stays picked.  On a
+  model).  Each picked host frame is uploaded into a fixed input row and
+  split into canonical planes on the device; a row that holds its pick
+  already is not uploaded again within a loop call.  On a
   GPU the upload goes through a pinned host buffer, or, for a source that
   hands out frames from a recurring pool, straight from the pool, which
   the pipeline page-locks once (``core.frame.HostRegistry``, released at
@@ -46,24 +47,26 @@
 - **Rebuilds** keep each element's carried state whose structure and
   tensor shapes still match (tpuvf's rule), so a property write that
   rebuilds does not restart a grain counter or drop a previous frame.
-- **Per-frame params and controllers**: before every frame `run` syncs the
-  controlled properties (`Element.control`) to the output clock's frame
-  index, rebuilds if a write changed the structure, and re-reads every
-  element's traced values, staging the scalars on the device only when one
-  changed (`runtime/staging.py`), and each compositor's draw table
-  (its prepare pass on the host).  `run_batched` enqueues a batch as one
-  step, its params staged as one (n, k) block; `run_live` paces `run` on
-  the output clock and drops late ticks.
-- **The compiled step** (`runtime/compiled.py`): `run` and `run_live`
-  run each frame's step over fixed buffers, on the card as one replay of
-  a CUDA graph captured once per key (tpuvf's one jitted program per
-  variant); `run_batched` runs a batch's n steps as one graph (tpuvf's
-  one program a batch, a ``lax.scan``), and on a mesh each dp shard's
-  sub-batch, its bands included, as one graph on its card (each shard's
-  local scan inside tpuvf's ``shard_map``).  `step`/`step_sources` and a
-  shard whose bands lie on several cards run eagerly.  A fault the fused
-  step cannot name is located by re-running the frame (a batch's first)
-  eagerly on fresh state (`_locate_failure`).
+- **Per-frame params and controllers**: before every frame the loop
+  syncs the controlled properties (`Element.control`) to the output
+  clock's frame index (`run` rebuilds if a write changed the structure,
+  `run_batched` keeps one structure a call), and re-reads every element's
+  traced values, staging the scalars on the device only when one changed
+  (`runtime/staging.py`), and each compositor's draw table (its prepare
+  pass on the host).  `run_live` paces `run` on the output clock and
+  drops late ticks.
+- **One frame loop** (`_loop`) over batches: `run` and `run_live` step
+  batches of one frame, `run_batched` batches of `batch_size`, each
+  through the compiled step (`runtime/compiled.py`) over fixed buffers,
+  on the card as one replay of a CUDA graph captured once per key (tpuvf's
+  one jitted program per variant, its one program a batch, a
+  ``lax.scan``), read back on the step's readback stream beside the next
+  batch's replay.  On a mesh (`_run_mesh`) each dp shard's sub-batch, its
+  bands included, is one graph on its card (each shard's local scan
+  inside tpuvf's ``shard_map``), read back on its current stream.
+  `step`/`step_sources` and a shard whose bands lie on several cards run
+  eagerly.  A fault the fused step cannot name is located by re-running a
+  batch's first frame eagerly on fresh state (`_locate_failure`).
 - **Navigation**: a vfvideosink's pointer events route upstream through
   the compositors' hit tests to the source (`_wire_navigation`).
 
@@ -980,87 +983,129 @@ class Pipeline:
                  sleep_fn=None) -> int:
         """`run` paced on the output clock (`_paced_indices`): late ticks
         are dropped into `stats.frames_dropped`; `time_fn` and `sleep_fn`
-        (default: time.perf_counter, time.sleep) can be injected.  With the
-        one-frame overlap the frame due at tick k is enqueued at tick k and
-        handed to its sinks at the next tick, after frame k+1's work is
-        enqueued: tpuvf's order, which consumes frame i-1 once frame i is
-        dispatched."""
+        (default: time.perf_counter, time.sleep) can be injected.  The
+        frame due at tick k is enqueued at tick k and handed to its sinks
+        at the next tick, after frame k+1's work is enqueued: tpuvf's
+        order, which consumes frame i-1 once frame i is dispatched."""
         return self._run(num_frames, (time_fn or time.perf_counter,
                                       sleep_fn or time.sleep))
 
     def run(self, num_frames: Optional[int] = None) -> int:
         """Frame loop with tpuvf's one-frame overlap (``tpuvf/runtime/
-        pipeline.py:1496-1636``).  Per frame i: sync the controlled
-        properties to i and rebuild if a property write changed the
-        structure (carried state kept, upload cache cleared); re-read the
-        params; upload frame i's new host buffers; enqueue the step, each
-        sink's host-layout permutation (or render) and the copies to the
-        host, record an event; only then wait on frame i-1's event and hand
-        frame i-1 to its sinks.  So a property written while frame i-1 is
-        delivered takes effect at frame i+1, as in tpuvf.  A step failure
-        first delivers the pending frame (best effort; the original error
-        wins); a sink failure reports the frame it was consuming.  Every
-        sink is finalized at the end of a run that did not fail."""
+        pipeline.py:1496-1636``): `_loop` over batches of one frame.
+        Before frame i the controlled properties are synced to i and a
+        write that changed the structure rebuilds (carried state kept);
+        frame i-1 is handed to its sinks once frame i's work is enqueued,
+        so a property written while frame i-1 is delivered takes effect at
+        frame i+1, as in tpuvf."""
         return self._run(num_frames)
 
     def _run(self, num_frames: Optional[int], pace=None) -> int:
+        """`run`, and `run_live` with `pace` (time_fn, sleep_fn)."""
         if self._built_signature is None:
             self.build()
-        out_fps, infos = self._clock()
-        num_frames = self._clock_num_frames(out_fps, infos, num_frames)
+        clock = self._clock()
+        num_frames = self._clock_num_frames(*clock, num_frames)
         # schedules index the output frame on the clock, the k that picks
         # the sources' buffers
         controlled = self._controlled()
+
+        def sync(k):
+            for el in controlled:
+                el.sync_frame(k)
+            self._maybe_rebuild()
+
         indices = (range(num_frames) if pace is None
-                   else self._paced_indices(num_frames, out_fps, *pace))
-        state = self.state
-        compiled = self.compiled
-        uploaded = {}  # source name -> buffer index in its fixed input
-        pending = []  # frame i-1's readback, delivered after frame i's step
-        count = 0
+                   else self._paced_indices(num_frames, clock[0], *pace))
+        return self._loop(((i, 1) for i in indices), 1, clock, sync)
+
+    def _loop(self, batches, batch_size: int, clock, sync) -> int:
+        """The frame loop of `run`, `run_live` and `run_batched` without a
+        mesh over `batches`, (first frame, n) each, at most `batch_size`
+        frames; `clock` is `_clock`'s and `sync(k)` syncs the controllers
+        to frame k (`_params_head`).  Per batch: the params head; each
+        frame's buffers uploaded into its row of the compiled step's fixed
+        inputs (`CompiledStep.upload_rows`: a source whose rows all hold
+        their buffers already skipped, a frame of a source's recurring
+        pool copied straight from the pool, any other through a host copy;
+        on the card on the step's copy stream, beside the previous batch's
+        readback);
+        the batch's n steps as one (`CompiledStep.step_batch`: on the card
+        one replay of the batch key's CUDA graph, once each frame key has
+        run eagerly) and each frame's readback into buffers of the batch's
+        own (two sets of `batch_size` slots a sink, taken in turns per
+        batch), one event a frame, on the card on the step's readback
+        stream (`CompiledStep.reading_back`) beside the next batch's
+        replay.  Only then are the frames of the batch before handed to
+        the sinks.  The carried state runs through the frames in order,
+        across batches and calls.  A failure, the controllers' sync and a
+        rebuild included, first delivers the pending frames (best effort;
+        the original error wins); a step's raises PipelineError at the
+        batch's first frame (a replay's fault located by that frame's
+        eager re-run), a sink's names its frame.  Every sink is finalized
+        at the end of a run that did not fail."""
+        self.compiled.forget_uploads()
+        pending: List[tuple] = []
+        count = batch = 0
         edge = self.stats.edge_seconds
         t_run = time.perf_counter()
-        for i in indices:
-            with trace("tpuvf_torch.params", edge, i):
-                for el in controlled:
-                    el.sync_frame(i)
-                self.state = state  # a rebuild merges the current carry
-                if self._maybe_rebuild():
-                    state = self.state
-                    compiled = self.compiled
-                    uploaded.clear()
+        for first, n in batches:
             try:
-                with trace("tpuvf_torch.params", edge, i):
-                    selection = self._select_frames(i, 1, out_fps, infos)[0]
-                    reads = read_params(self._active(), self.device)
-                    metas = {name: meta
-                             for name, (_, meta) in selection.items()}
-                    compiled.stage(reads, metas, i)
-                    retry = self._eager_retry(selection, reads)
-                with trace("tpuvf_torch.upload", edge, i):
-                    compiled.await_copies()
-                    for name, (j, _) in selection.items():
-                        if uploaded.get(name) != j:  # a repeat keeps its bytes
-                            src = self[name]
-                            with trace("tpuvf_torch.upload.source", edge, i):
-                                host = src.generate(j, self._source_spec(src))
-                            compiled.upload(name, host, i)
-                            uploaded[name] = j
-                with trace("tpuvf_torch.enqueue", edge, i):
-                    payloads, state = self._step_or_locate(
-                        lambda: compiled.step(reads, metas, state, i), i,
-                        retry)
-                self.state = state
-                # slots in turns by frames run, not by index: a live run
+                with trace("tpuvf_torch.params", edge, first):
+                    rows, selections, metas, retries = self._params_head(
+                        first, n, clock, sync)
+                compiled = self.compiled
+                with trace("tpuvf_torch.upload", edge, first):
+                    compiled.upload_rows(selections, first)
+                with trace("tpuvf_torch.enqueue", edge, first):
+                    outs, self.state = self._step_or_locate(
+                        lambda: compiled.step_batch(rows, metas, self.state,
+                                                    first),
+                        first, retries[0])
+                # slots in turns by batches run, not by index: a live run
                 # skips indices
-                with trace("tpuvf_torch.readback", edge, i):
-                    readback = self._readback(payloads, i, count % 2, retry)
+                with trace("tpuvf_torch.readback", edge, first), \
+                        compiled.reading_back(outs):
+                    readbacks = [self._readback(
+                        outs[j], first + j, (batch % 2) * batch_size + j,
+                        retries[j]) for j in range(n)]
             except Exception:
                 self._flush_pending(pending)
                 raise
-            pending = self._hand_over(pending, [readback])
-            count += 1
+            pending = self._hand_over(pending, readbacks)
+            count += n
+            batch += 1
         return self._end_run(count, t_run, pending)
+
+    def _params_head(self, first: int, n: int, clock, sync, cards=None):
+        """The params head of output frames first .. first + n - 1, inside
+        the caller's span ``tpuvf_torch.params``: each frame's controllers
+        synced to it (`sync(k)`) and its params read, its sources' buffers
+        selected on the output clock (`clock`, `_clock`'s) and its eager
+        re-run made (`_eager_retry`, on the pipeline's device).  Without
+        `cards` the batch is staged into the compiled step's fixed rows
+        (`stage_batch`); a mesh passes its `cards`, on each of which every
+        frame is read too, and stages them itself.  -> (rows, selections,
+        metas, retries), a row a frame's reads, {card: reads} with
+        `cards`."""
+        here, rows = [], []
+        for k in range(first, first + n):
+            sync(k)
+            reads = read_params(self._active(), self.device)
+            here.append(reads)
+            if cards is not None:
+                rows.append({dev: reads if dev == self.device
+                             else read_params(self._active(), dev)
+                             for dev in cards})
+        selections = self._select_frames(first, n, *clock)
+        metas = [{name: meta for name, (_, meta) in sel.items()}
+                 for sel in selections]
+        if cards is None:
+            rows = here
+            self.compiled.stage_batch(rows, metas, first)
+        retries = [self._eager_retry(sel, reads)
+                   for sel, reads in zip(selections, here)]
+        return rows, selections, metas, retries
 
     def _step_or_locate(self, step, index: int, retry):
         """`step()`, a compiled step; a fault that names no element (a
@@ -1115,12 +1160,11 @@ class Pipeline:
         return PipelineError("<pipeline>", index, exc)
 
     def _hand_over(self, pending, readbacks) -> list:
-        """The loops' common end of a frame (`run`) or a batch
-        (`run_batched`), once its readbacks are enqueued: hand the frames
-        enqueued one frame or batch earlier to their sinks (`_deliver`,
-        whose spans ``tpuvf_torch.wait`` and ``tpuvf_torch.consume`` add to
-        `stats.edge_seconds` as the loops' spans before it do).  ->
-        `readbacks`, the new pending frames."""
+        """The loops' common end of a batch (a frame in `run`), once its
+        readbacks are enqueued: hand the frames enqueued one batch earlier
+        to their sinks (`_deliver`, whose spans ``tpuvf_torch.wait`` and
+        ``tpuvf_torch.consume`` add to `stats.edge_seconds` as the loops'
+        spans before it do).  -> `readbacks`, the new pending frames."""
         for rb in pending:
             self._deliver(*rb)
         return readbacks
@@ -1149,38 +1193,15 @@ class Pipeline:
                     sp_axis: Optional[str] = None,
                     independent_streams: bool = False) -> int:
         """Throughput mode (tpuvf's ``run_batched``, ``tpuvf/runtime/
-        pipeline.py:1916-2198``): `batch_size` frames a batch, enqueued as
-        one step with no host wait.
+        pipeline.py:1916-2198``): `_loop` over batches of `batch_size`
+        frames (a short tail last), each enqueued as one step with no host
+        wait, batch b-1 handed to the sinks while batch b computes.
 
         On entry the controlled elements are synced to frame 0 and a
         property write since the last build rebuilds; the structure then
         stays for the call, and a schedule that changes it raises at the
-        first frame where it does.  Per batch: each frame's buffers picked
-        on the output clock and uploaded into its row of the compiled
-        step's fixed inputs for a batch of n (`CompiledStep.upload_rows`:
-        a frame of a source's recurring pool straight from the pool, else
-        one host copy and one non-blocking copy per source; on the card on
-        the step's copy stream, beside the previous batch's readback);
-        every frame's params re-read after its controllers' sync and staged
-        into the fixed (n, k) scalar and (n, T) draw-table rows, one copy
-        each, each frame reading its row;
-        then the batch's n steps as one step (`CompiledStep.step_batch`:
-        on the card one replay of the batch key's CUDA graph, once each
-        frame key has run eagerly) and each frame's readback into buffers
-        of the batch's own (two sets a sink, taken in turns per batch), one
-        event a frame.  On the card the batch graph has two output sets,
-        taken in turns, and the readback runs on the step's readback
-        stream (`CompiledStep.reading_back`): after the batch's step
-        (`_step_done`), with each frame's event recorded after its copies,
-        while the next batch's replay runs on the compute stream; that
-        replay's set was last read back two batches earlier, and the
-        compute stream waits for those copies (`_outputs_free`).  Batch
-        b-1 is handed to the sinks while batch b computes.  The carried
-        state runs through the frames in order,
-        across batches and calls, and is `run`'s.  A step failure raises
-        PipelineError at the batch's first frame index, as tpuvf's one
-        dispatch a batch does (a replay's fault located by the first
-        frame's eager re-run); a sink failure names its frame.
+        first frame where it does (`_ctl_sync`).  The carried state is
+        `run`'s.
 
         With `mesh` (``parallel.mesh.make_mesh``, a 'dp' axis required),
         each batch splits over the dp shards, shard d taking the frames
@@ -1195,9 +1216,9 @@ class Pipeline:
         `_validate_sp`; the bands are joined before the sinks.  Each
         shard's sub-batch is one step (`CompiledStep.shard`): one graph
         replay on its card where its bands lie on one card, eager where
-        they lie on several.  Bitwise equal to the run without a mesh.
-        `sp_axis` without a mesh, and `independent_streams` without one,
-        have no effect, as in tpuvf."""
+        they lie on several (`_run_mesh`).  Bitwise equal to the run
+        without a mesh.  `sp_axis` without a mesh, and
+        `independent_streams` without one, have no effect, as in tpuvf."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if self._built_signature is None:
@@ -1210,53 +1231,18 @@ class Pipeline:
         if mesh is not None:
             lay = self._mesh_layout(mesh, sp_axis, batch_size,
                                     independent_streams)
-        out_fps, infos = self._clock()
-        num_frames = self._clock_num_frames(out_fps, infos, num_frames)
+        clock = self._clock()
+        num_frames = self._clock_num_frames(*clock, num_frames)
         structure = self._ctl_structure()
+
+        def sync(k):
+            self._ctl_sync(k, structure)
+
         if lay is not None:
-            return self._run_mesh(lay, num_frames, batch_size, out_fps,
-                                  infos, structure)
-        state = self.state
-        compiled = self.compiled
-        pending: List[tuple] = []
-        done = batch = 0
-        edge = self.stats.edge_seconds
-        t_run = time.perf_counter()
-        while done < num_frames:
-            n = min(batch_size, num_frames - done)
-            try:
-                with trace("tpuvf_torch.params", edge, done):
-                    rows = []
-                    for j in range(n):
-                        self._ctl_sync(done + j, structure)
-                        rows.append(read_params(self._active(), self.device))
-                    selections = self._select_frames(done, n, out_fps,
-                                                      infos)
-                    metas = [{name: meta for name, (_, meta) in sel.items()}
-                             for sel in selections]
-                    compiled.stage_batch(rows, metas, done)
-                    retries = [self._eager_retry(sel, r)
-                               for sel, r in zip(selections, rows)]
-                with trace("tpuvf_torch.upload", edge, done):
-                    self._upload_rows(selections, compiled.batch_inputs(n),
-                                      done, compiled)
-                with trace("tpuvf_torch.enqueue", edge, done):
-                    outs, state = self._step_or_locate(
-                        lambda: compiled.step_batch(rows, metas, state, done),
-                        done, retries[0])
-                self.state = state
-                with trace("tpuvf_torch.readback", edge, done), \
-                        compiled.reading_back(outs):
-                    readbacks = [self._readback(
-                        outs[j], done + j, (batch % 2) * batch_size + j,
-                        retries[j]) for j in range(n)]
-            except Exception:
-                self._flush_pending(pending)
-                raise
-            pending = self._hand_over(pending, readbacks)
-            done += n
-            batch += 1
-        return self._end_run(done, t_run, pending)
+            return self._run_mesh(lay, num_frames, batch_size, clock, sync)
+        return self._loop(((first, min(batch_size, num_frames - first))
+                           for first in range(0, num_frames, batch_size)),
+                          batch_size, clock, sync)
 
     # -- the mesh path (dp/sp) ------------------------------------------------
 
@@ -1484,16 +1470,17 @@ class Pipeline:
         self._mesh_state = (lay.key, tiles)
 
     def _run_mesh(self, lay: pmesh.Layout, num_frames: int, batch_size: int,
-                  out_fps, infos, structure) -> int:
+                  clock, sync) -> int:
         """`run_batched`'s loop on a mesh layout (see its docstring): per
-        batch, every frame's params re-read after its controllers' sync and
-        staged on each mesh card (`CompiledStep.param_rows`: one (n, k) and
-        one (n, T) copy a card, each shard's bands reading their frames'
-        rows), each shard's frames uploaded to its fixed input rows on its
-        first card, then each shard's sub-batch through `_step_bands` in
-        one step (`CompiledStep.shard`, one graph replay where its bands
-        lie on one card) and its readbacks from that card.  A replay's
-        fault is located by the batch's first frame re-run eagerly on the
+        batch, the params head (`_params_head`) with every frame read on
+        each mesh card and staged there (`CompiledStep.param_rows`: one
+        (n, k) and one (n, T) copy a card, each shard's bands reading their
+        frames' rows), each shard's frames uploaded to its fixed input rows
+        on its first card (`ShardStep.upload_rows`), then each shard's
+        sub-batch through `_step_bands` in one step (`CompiledStep.shard`,
+        one graph replay where its bands lie on one card) and its
+        readbacks from that card, on its current stream.  A replay's fault
+        is located by the batch's first frame re-run eagerly on the
         pipeline's device."""
         replicated = self._sp_replicated if lay.sp > 1 else frozenset()
         compiled = self.compiled
@@ -1516,17 +1503,8 @@ class Pipeline:
             readbacks = []
             try:
                 with trace("tpuvf_torch.params", edge, done):
-                    rows = []
-                    for j in range(n):
-                        self._ctl_sync(done + j, structure)
-                        rows.append({dev: read_params(self._active(), dev)
-                                     for dev in devices})
-                        if j == 0:  # the eager re-run's, on the pipeline's
-                            first = read_params(self._active(), self.device)
-                    selections = self._select_frames(done, n, out_fps,
-                                                      infos)
-                    metas = [{name: meta for name, (_, meta) in sel.items()}
-                             for sel in selections]
+                    rows, selections, metas, retries = self._params_head(
+                        done, n, clock, sync, devices)
                     tables = [self._frame_tables(rows[j][devices[0]],
                                                  metas[j], done + j)
                               for j in range(n)]
@@ -1536,12 +1514,11 @@ class Pipeline:
                         with on_device(dev):  # the stager's event on its card
                             params[dev].stage(self._mesh_stagers[dev],
                                               [r[dev] for r in rows], tables)
-                    retry = self._eager_retry(selections[0], first)
                 parts = pmesh.shard_frames(lay, batch_size, n)
                 with trace("tpuvf_torch.upload", edge, done):
                     for d, frames in parts:
-                        self._upload_rows([selections[j] for j in frames],
-                                          shards[d].inputs(len(frames)), done)
+                        shards[d].upload_rows([selections[j] for j in frames],
+                                              done)
                 for d, frames in parts:
                     with on_device(lay.devices[d][0]):
                         with trace("tpuvf_torch.enqueue", edge, (done, d)):
@@ -1549,7 +1526,7 @@ class Pipeline:
                                 lambda: shards[d].step(frames, metas, rows,
                                                        params, states[d],
                                                        done),
-                                done, retry)
+                                done, retries[0])
                         with trace("tpuvf_torch.readback", edge, (done, d)):
                             readbacks += [self._readback(
                                 payloads, done + j,
@@ -1572,43 +1549,12 @@ class Pipeline:
                 torch.cuda.synchronize(dev)
         return self._end_run(done, t_run, pending)
 
-    def _upload_rows(self, selections, inputs: Dict[str, torch.Tensor],
-                     index: int, compiled: Optional[CompiledStep] = None):
-        """Each frame's picked buffers (`_select_buffers`, one a frame) ->
-        its row of the fixed inputs `inputs` ({source name: (n, nbytes)
-        device buffer}): with `compiled`, the step whose inputs they are,
-        through its `upload_rows` (a frame of a recurring pool straight from
-        the pool, on its copy stream), after the copies its last upload read
-        from a source's memory (`await_copies`); without (a mesh's shard
-        rows), per source one host copy and one non-blocking copy on the
-        current stream (`HostLayout.upload_into`).  A buffer that several
-        frames pick is generated once (span ``tpuvf_torch.upload.source``).
-        `index`, the batch's first frame, rides in the spans' args."""
-        edge = self.stats.edge_seconds
-        if compiled is not None:
-            compiled.await_copies()
-        for name, flat in inputs.items():
-            src = self[name]
-            spec = self._source_spec(src)
-            hosts = {}
-            with trace("tpuvf_torch.upload.source", edge, index):
-                for sel in selections:
-                    j = sel[name][0]
-                    if j not in hosts:
-                        hosts[j] = src.generate(j, spec)
-            frames = [hosts[sel[name][0]] for sel in selections]
-            if compiled is not None:
-                compiled.upload_rows(name, frames, flat, index)
-            else:
-                HostLayout(spec).upload_into(frames, flat, edge, index)
-                self.stats.upload_filled += len(frames)
-
     def _ring_buffer(self, sink, layout: HostLayout, slot: int):
-        """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  `run`
-        takes slots 0 and 1 in turns, so frame i's copies never land in
-        frame i-1's, which is being delivered, and a frame two later reuses
-        one after it was delivered; `run_batched` takes two sets of
-        batch_size slots, one set a batch in turns."""
+        """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  The
+        loops take two sets of batch_size slots (1 for `run`), one set a
+        batch in turns, so a batch's copies never land in the batch before
+        it, which is being delivered, and a batch two later reuses a set
+        after it was delivered."""
         ring = self._rings.get(sink.name)
         if ring is None or ring[0].numel() != layout.nbytes:
             ring = self._rings[sink.name] = []
