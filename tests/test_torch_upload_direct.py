@@ -38,6 +38,11 @@ wait on each batch's delivery; once with every step eager, its payloads
 from the caching allocator), and the
 compute stream before each step and before the fourth alone (which only the
 readback stream's wait on `_step_done` keeps the copies from outrunning).
+The upload of a source's region (``tests/test_torch_upload_cull.py`` on the
+CPU): config 5 at full size, every upload poisoning its rows first, byte-
+equal to the eager fill run with s0's hidden quadrant never copied
+(`upload_culled`); the inset sliding over s0 while s0 keeps its buffer, equal
+to the eager run, and red where the memo ignores the regions.
 """
 
 import gc
@@ -51,6 +56,7 @@ import pytest
 import torch
 
 from tpuvf_torch.cli.launch import parse_pipeline
+from tpuvf_torch.core import region
 from tpuvf_torch.core.formats import VideoFormat
 from tpuvf_torch.core.frame import HostLayout, HostRegistry, host_pieces
 from tpuvf_torch.core.spec import FrameSpec
@@ -111,7 +117,8 @@ def upload(frames, reg=None, spec=NV12):
     """-> (the rows `upload_into` wrote, how many went straight)."""
     layout = HostLayout(spec)
     out = torch.zeros((len(frames), layout.nbytes), dtype=torch.uint8)
-    direct = layout.upload_into(frames, out, registry=reg)
+    direct, culled = layout.upload_into(frames, out, registry=reg)
+    assert culled == 0  # no spans: every frame whole
     return out, direct
 
 
@@ -189,8 +196,9 @@ def test_rows_of_one_fresh_frame_in_a_batch_are_one_sighting(monkeypatch,
     reg, fake = registry()
     real = HostLayout.upload_into
 
-    def upload_into(self, frames, out, edge=None, index=None, registry=None):
-        return real(self, frames, out, edge, index, reg)
+    def upload_into(self, frames, out, edge=None, index=None, registry=None,
+                    spans=None):
+        return real(self, frames, out, edge, index, reg, spans)
 
     monkeypatch.setattr(HostLayout, "upload_into", upload_into)
     paths = []
@@ -286,7 +294,7 @@ def test_four_sources_share_one_budget(monkeypatch):
     for batch in range(6):
         for layout, (root, frames) in zip(layouts, pools):
             out = torch.zeros((8, layout.nbytes), dtype=torch.uint8)
-            direct = layout.upload_into(frames, out, registry=reg)
+            direct, _ = layout.upload_into(frames, out, registry=reg)
             assert direct == (0 if batch == 0 else 8)
         if batch == 1:
             assert fake.registered == [(root.ctypes.data, root.nbytes)
@@ -604,9 +612,9 @@ def test_memory_the_caller_pinned_on_the_card(card):
     assert int(rt.cudaHostRegister(root.ctypes.data, root.nbytes, 0)) == 0
     reg = HostRegistry("cuda")
     out = torch.zeros((3, layout.nbytes), dtype=torch.uint8, device="cuda")
-    assert layout.upload_into(frames, out, registry=reg) == 0
+    assert layout.upload_into(frames, out, registry=reg) == (0, 0)
     out.zero_()
-    assert layout.upload_into(frames, out, registry=reg) == 3
+    assert layout.upload_into(frames, out, registry=reg) == (3, 0)
     assert torch.equal(out.cpu(), torch.from_numpy(root).view(3, -1))
     assert reg._held == {}  # borrowed
     reg.release()
@@ -619,8 +627,8 @@ def test_memory_the_caller_pinned_on_the_card(card):
     frames = [{"y": row[:128].reshape(8, 16), "uv": row[128:].reshape(4, 16)}
               for row in host]
     out.zero_()
-    assert layout.upload_into(frames, out, registry=reg) == 0
-    assert layout.upload_into(frames, out, registry=reg) == 3
+    assert layout.upload_into(frames, out, registry=reg) == (0, 0)
+    assert layout.upload_into(frames, out, registry=reg) == (3, 0)
     assert torch.equal(out.cpu(), pinned) and reg._held == {}
     assert (torch.ones(4, device="cuda") + 1).sum().item() == 8
     reg.release()
@@ -687,3 +695,81 @@ def test_the_batch_readback_stream_on_the_card(card, monkeypatch, tmp_path,
     wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
     assert not wrong, f"{len(wrong)} of {FRAMES} frames wrong: {wrong}"
     assert stats.readback_async == FRAMES
+
+
+# -- the upload of a source's region, on the card --------------------------------
+
+CULLED = 1920 * 1080 * 4  # s0's bytes under the opaque 1080p inset
+
+
+def _poison_rows(monkeypatch, value: int) -> None:
+    """Every upload into fixed rows first fills them with `value` on the
+    copy stream, so a byte its region leaves out holds the poison."""
+    real = HostLayout.upload_into
+
+    def poisoned(self, frames, out, *a, **k):
+        out.fill_(value)
+        return real(self, frames, out, *a, **k)
+
+    monkeypatch.setattr(HostLayout, "upload_into", poisoned)
+
+
+def _sliding_run(desc, pools, direct):
+    """`run` over 16 frames of config 5 with s0 at 5 fps and the inset
+    sliding 1920 -> 0 -> 1920 over 12 frames -> (the sink's frames as bytes,
+    the stats); `direct` False: the eager whole-frame reference."""
+    pipe = parse_pipeline(desc.replace("framerate=30/1 ! c.sink_0",
+                                       "framerate=5/1 ! c.sink_0"),
+                          device="cuda")
+    for name, pooled in pools.items():
+        for k in range(16):
+            pipe[name].push(pooled[k % len(pooled)])
+        pipe[name].end_of_stream()
+    pipe["c"].control("sink_1::xpos",
+                      [320 * abs(6 - k % 12) for k in range(16)])
+    if not direct:
+        pipe._host_memory = None
+        pipe.compiled.graphs = False
+    pipe.run(16)
+    return [np.ascontiguousarray(f).tobytes()
+            for f in pipe.sinks[0].frames], pipe.stats
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("poison", [0xFF, 0x00])
+def test_config5_uploads_its_region_on_the_card(card, monkeypatch, tmp_path,
+                                                poison):
+    """`run_batched` over recurring pools, 48 frames in batches of 6, with
+    every upload poisoning its rows first: byte-equal to the eager fill
+    run, and s0's top right quadrant never copied once s0 goes
+    straight."""
+    desc, frames = compositor(tmp_path)
+    want, _ = _card_run("run_batched", frames, FRAMES, False, desc)
+    _poison_rows(monkeypatch, poison)
+    got, stats = _card_run("run_batched", frames, FRAMES, True, desc)
+    wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert len(got) == len(want) == FRAMES
+    assert not wrong, f"{len(wrong)} of {FRAMES} frames wrong: {wrong}"
+    assert stats.upload_direct == 4 * (FRAMES - 6)
+    assert stats.upload_culled == (FRAMES - 6) * CULLED
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("memo", ["as built", "ignores the region"])
+def test_a_sliding_inset_on_the_card(card, monkeypatch, tmp_path, memo):
+    """The inset slides over s0 while s0 keeps its buffer for 6 frames: a
+    row whose region grows is uploaded again.  With the memo's region test
+    made to always pass, frames 7 and 13 (the first after s0's culled
+    uploads at frames 6 and 12) read poison."""
+    desc, frames = compositor(tmp_path)
+    want, _ = _sliding_run(desc, frames, False)
+    _poison_rows(monkeypatch, 0xFF)
+    if memo != "as built":
+        monkeypatch.setattr(region, "contains", lambda held, need: True)
+    got, stats = _sliding_run(desc, frames, True)
+    wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert len(got) == len(want) == 16 and stats.upload_culled > 0
+    if memo == "as built":
+        assert not wrong, f"{len(wrong)} of 16 frames wrong: {wrong}"
+    else:
+        assert {7, 13} <= set(wrong), wrong

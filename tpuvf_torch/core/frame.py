@@ -135,6 +135,37 @@ def host_pieces(spec: FrameSpec) -> List[Tuple[str | None, Tuple[int, ...]]]:
     raise ValueError(f"unknown format {fmt}")
 
 
+def _piece_grids(spec: FrameSpec) -> List[Tuple[int, int, int]]:
+    """Each host piece's sampling of the frame's pixels, in `host_pieces`'
+    order: (rows, columns) of pixels a sample covers, and its bytes."""
+    fmt = spec.format
+    if fmt in RGB_FORMATS:
+        return [(1, 1, 4)]
+    if fmt in PACKED_YUV_FORMATS:
+        return [(1, 2, 4)]  # a macro-pixel: two pixels' U Y0 V Y1
+    if fmt == VideoFormat.NV12:
+        return [(1, 1, 1), (2, 2, 2)]
+    if fmt == VideoFormat.I420:
+        return [(1, 1, 1), (2, 2, 1), (2, 2, 1)]
+    raise ValueError(f"unknown format {fmt}")
+
+
+def _copy_rows_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Rows of page-locked host bytes `src` -> `dst`'s on the card (2-D
+    uint8 views of one shape whose rows are contiguous), enqueued on the
+    current stream as one ``cudaMemcpy2DAsync`` (``csrc/copy.cu``), where
+    torch's copy of a strided host view would gather it on the host."""
+    from tpuvf_torch.kernels import _build
+
+    rows, width = dst.shape
+    err = _build.load().copy_rows_h2d(
+        dst.data_ptr(), dst.stride(0), src.data_ptr(), src.stride(0), width,
+        rows, torch.cuda.current_stream(dst.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"CUDA error {err} from a strided upload of "
+                           f"{rows} rows of {width} bytes")
+
+
 def host_layout(planes: Dict[str, torch.Tensor], spec: FrameSpec) -> List[torch.Tensor]:
     """Canonical uint8 planes -> the host layout's arrays (`host_pieces`'
     order and shapes), computed on the planes' device; `planes_to_host`
@@ -398,6 +429,23 @@ class HostLayout:
         self.shapes = [s for _, s in pieces]
         self.sizes = [int(np.prod(s)) for s in self.shapes]
         self.nbytes = sum(self.sizes)
+        self._grids = _piece_grids(spec) if shape is None else None
+
+    def spans(self, region):
+        """A region of the frame's pixels (``core/region.py``; None: all)
+        -> the bytes of the layout that hold it, None for all: ((piece,
+        row0, row1, byte0, byte1), ...), the rows [row0, row1) of the
+        piece's rows from byte0 up to byte1, a span a band and piece."""
+        if region is None:
+            return None
+        out = []
+        for piece, (rs, cs, size) in enumerate(self._grids):
+            rows = self.shapes[piece][0]
+            pitch = self.sizes[piece] // rows
+            for y0, y1, x0, x1 in region:
+                out.append((piece, y0 // rs, min(-(-y1 // rs), rows),
+                            x0 // cs * size, min(-(-x1 // cs) * size, pitch)))
+        return tuple(out)
 
     def buffer(self, pinned: bool) -> torch.Tensor:
         """A fresh flat host buffer for one frame of this layout."""
@@ -452,18 +500,23 @@ class HostLayout:
         return [self._views(row) for row in rows]
 
     def upload_into(self, host_frames, out: torch.Tensor, edge=None,
-                    index=None, registry: HostRegistry = None) -> int:
+                    index=None, registry: HostRegistry = None,
+                    spans=None) -> Tuple[int, int]:
         """Host frames -> the rows of `out`, a (len(host_frames), nbytes)
         device buffer (a compiled step's fixed inputs), every copy
         non-blocking on the current stream: a frame whose arrays lie in
         page-locked memory `registry` admitted (`HostRegistry.covers`)
-        array by array straight into its row, the others through one host
-        copy into a fresh buffer (pinned on a GPU) and one copy (one a row
-        when some frames went straight).  -> how many frames went straight.  Each
-        part is a span (`_alloc` with the registration, `_fill_rows`,
-        ``tpuvf_torch.upload.copy``) adding to `edge`, a
-        `PipelineStats.edge_seconds`, where given; `index` rides in the
-        spans' profiler args."""
+        straight into its row, array by array, or where `spans` (one a
+        frame: `spans`' result, None for all) gives the frame's spans,
+        span by span (a span narrower than its piece's rows on a GPU as
+        one strided copy, `_copy_rows_h2d`; the row's other bytes keep
+        what they held); the others whole, through one host copy into a
+        fresh buffer (pinned on a GPU) and one copy (one a row when some
+        frames went straight).  -> (how many frames went straight, the
+        bytes their spans left out).  Each part is a span (`_alloc` with
+        the registration, `_fill_rows`, ``tpuvf_torch.upload.copy``)
+        adding to `edge`, a `PipelineStats.edge_seconds`, where given;
+        `index` rides in the spans' profiler args."""
         n = len(host_frames)
         if tuple(out.shape) != (n, self.nbytes) or out.dtype != torch.uint8:
             raise ValueError(f"upload_into: {n} frames into "
@@ -476,17 +529,33 @@ class HostLayout:
             host = self._alloc(len(filled), out.device, edge, index)
             self._fill_rows(host, [host_frames[i] for i in filled], edge,
                             index)
+        culled = 0
         with trace("tpuvf_torch.upload.copy", edge, index):
             if len(filled) == n:
                 out.copy_(host, non_blocking=True)
-                return 0
+                return 0, 0
             for i in range(n):
-                if direct[i]:
-                    for view, arr in zip(self._views(out[i]), parts[i]):
+                if not direct[i]:
+                    continue
+                views = self._views(out[i])
+                frame_spans = None if spans is None else spans[i]
+                if frame_spans is None:
+                    for view, arr in zip(views, parts[i]):
                         view.copy_(torch.from_numpy(arr), non_blocking=True)
+                    continue
+                for piece, r0, r1, b0, b1 in frame_spans:
+                    dst = views[piece].view(self.shapes[piece][0], -1)
+                    src = torch.from_numpy(parts[i][piece]).view(dst.shape)
+                    dst, src = dst[r0:r1, b0:b1], src[r0:r1, b0:b1]
+                    if out.is_cuda and b1 - b0 < dst.stride(0):
+                        _copy_rows_h2d(dst, src)
+                    else:
+                        dst.copy_(src, non_blocking=True)
+                    culled -= dst.numel()
+                culled += self.nbytes
             for row, i in enumerate(filled):
                 out[i].copy_(host[row], non_blocking=True)
-        return n - len(filled)
+        return n - len(filled), culled
 
     def _parts(self, host_frame) -> list:
         """A host frame's arrays in this layout's order."""

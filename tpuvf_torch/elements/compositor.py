@@ -58,6 +58,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuvf_torch.core import region
 from tpuvf_torch.core.element import Element
 from tpuvf_torch.core.formats import CORE_FORMATS, RGB_FORMATS, VideoFormat
 from tpuvf_torch.core.properties import PropertyBag, PropertyDescriptor
@@ -74,6 +75,7 @@ from tpuvf_torch.kernels.composite import (
     composite_fold,
     pack_table,
     table_size,
+    unpack_table,
 )
 from tpuvf_torch.kernels.emit import emit
 from tpuvf_torch.kernels.sample import LINEAR
@@ -184,6 +186,7 @@ class _PadPlan(NamedTuple):
     y_off: int
     sample: object
     opaque: bool  # no alpha channel: may obscure (pad_obscures_rectangle)
+    spec: FrameSpec  # the pad's input
 
 
 def _plan_sampler(spec: FrameSpec, w: int, h: int, device):
@@ -406,7 +409,8 @@ class Compositor(Element):
                 continue  # zero-size rect: never drawn
             plans.append(_PadPlan(pad.name, w, h, x_off, y_off,
                                   _plan_sampler(pad.spec, w, h, device),
-                                  pad.spec.format not in RGB_FORMATS))
+                                  pad.spec.format not in RGB_FORMATS,
+                                  pad.spec))
         out_format, matrix_out = out_spec.format, out_spec.matrix_index
         background = Background(colors, 0 if band is None else band.lo)
         rows = out_h if band is None else band.rows
@@ -473,6 +477,38 @@ class Compositor(Element):
                               float(params[f"fold.{name}.alpha"]), True))
             return pack_table(bg_drawn, draws, out)
 
+        def pad_regions(table):
+            """A frame's draw table (`draw_table`'s) -> {pad: the pixels of
+            its input that the frame's canvas reads (``core/region.py``)}.
+            An undrawn pad reads none; a pad sampled at another size than
+            its input's reads all of it where it draws; any other reads
+            its clamped rect outside the rects of the later draws that
+            replace what lies under them: drawn, of an opaque format at
+            alpha 1 (``obscuring``, so each pixel's alpha is 1), with
+            ``source`` or ``over`` (whose ``dv * (1 - s_a)`` is then
+            exactly 0).  That region is moved to the input's pixels and
+            widened by the sampler's chroma taps: 2 pixels, rounded out to
+            the chroma grid, for a YUV input."""
+            _, rows = unpack_table(table, len(plans) + len(mixes))
+            out = {}
+            for i, d in enumerate(plans):
+                x, y, rect, _, _, drawn = rows[i]
+                if not drawn:
+                    out[d.name] = ()
+                    continue
+                w, h = d.spec.width, d.spec.height
+                if (d.width, d.height) != (w, h):
+                    out[d.name] = None
+                    continue
+                covers = [r[2] for q, r in zip(plans[i + 1:], rows[i + 1:])
+                          if r[5] and q.opaque and r[4] >= 1.0
+                          and r[3] in (OP_SOURCE, OP_OVER)]
+                chroma = d.opaque  # YUV: its chroma taps reach 2 pixels
+                out[d.name] = region.widen(
+                    region.shift(region.uncovered(rect, covers), -x, -y),
+                    2 if chroma else 0, w, h, chroma)
+            return out
+
         def process(pad_inputs, state, params):
             table = params.get(DRAW_TABLE)
             if table is None:  # a caller that staged none: one copy here
@@ -485,5 +521,6 @@ class Compositor(Element):
             return convert.pack_rgba(canvas, out_format, matrix_out), state
 
         process.draw_table = draw_table
+        process.pad_regions = pad_regions
         process.table_size = table_size(len(plans) + len(mixes))
         return process

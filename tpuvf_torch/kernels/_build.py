@@ -27,7 +27,10 @@ The kernels in the library, each with its wrapper:
 - K6 ``overlay_blend_u8`` (RGB) and ``overlay_yuv420_u8`` (4:2:0)
   (``overlay.cu``, ``kernels/overlay.py``): vfoverlay's whole body, the
   input's RGB -> the rect blend of the premultiplied image -> RGBA8 or
-  4:2:0 out.
+  4:2:0 out;
+- ``copy_rows_h2d`` (``copy.cu``, called by ``core/frame.py``'s
+  `HostLayout.upload_into`): no kernel, one strided copy of host rows to
+  the card (``cudaMemcpy2DAsync``).
 
 `SIGNATURES` gives each exported function's ctypes argument types; a source
 that exports a function must list it there.
@@ -100,6 +103,8 @@ SIGNATURES = {
     # y0, y1, alpha, matrix_in, matrix_out, stream
     "overlay_yuv420_u8": [_P] * 14 + [_I, _I, _P] + [_I] * 4 + [_P, _I, _I,
                                                                 _P],
+    # dst, dpitch, src, spitch, width (bytes), rows, stream
+    "copy_rows_h2d": [_P, _I, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -151,6 +151,21 @@ def pack_table(bg_drawn: bool, rows: Iterable[tuple],
     return out
 
 
+def unpack_table(table, n_draws: int) -> tuple:
+    """`pack_table`'s inverse: the ints of a table of `n_draws` draws ->
+    (bg_drawn, [(x, y, (x0, y0, x1, y1), op, k, drawn)]), k the float32
+    its bits hold, drawn a bool."""
+    t = [int(v) for v in table]
+    rows = []
+    for i in range(n_draws):
+        x, y, x0, y0, x1, y1, op, k, drawn = t[
+            TABLE_HEAD + TABLE_FIELDS * i:TABLE_HEAD + TABLE_FIELDS * (i + 1)]
+        rows.append((x, y, (x0, y0, x1, y1), op,
+                     struct.unpack("<f", struct.pack("<i", k))[0],
+                     bool(drawn)))
+    return bool(t[0]), rows
+
+
 def _check_draw(d: Draw, height: int, width: int) -> None:
     x0, y0, x1, y1 = d.rect
     if x1 <= x0 or y1 <= y0:
@@ -225,22 +240,20 @@ def placed_draws(height: int, width: int, background: Background,
     canvas: each rect clamped to the canvas rows ``[row0, row0 + height)``
     and columns, and to its placed source, then moved to the canvas's
     rows; a draw whose flag is 0 gets an empty rect."""
-    t = [int(v) for v in torch.as_tensor(table).tolist()]
+    bg_drawn, rows = unpack_table(torch.as_tensor(table).tolist(),
+                                  len(sources))
     row0 = background.row0
     draws = []
-    for i, s in enumerate(sources):
-        x, y, tx0, ty0, tx1, ty1, op, k, drawn = t[
-            TABLE_HEAD + TABLE_FIELDS * i:TABLE_HEAD + TABLE_FIELDS * (i + 1)]
+    for s, (x, y, (tx0, ty0, tx1, ty1), op, k, drawn) in zip(sources, rows):
         h, w = s.planes.shape[-2], s.planes.shape[-1]
         x0, x1 = max(tx0, x, 0), min(tx1, x + w, width)
         y0, y1 = max(ty0, y, row0), min(ty1, y + h, row0 + height)
         if not drawn or x1 <= x0 or y1 <= y0:
             x0 = y0 = x1 = y1 = 0
-        kf = struct.unpack("<f", struct.pack("<i", k))[0]
         draws.append(Draw(s.planes, x, y - row0, (x0, y0 - row0, x1,
                                                   y1 - row0),
-                          op, kf, 1, s.keep_alpha))
-    return bool(t[0]), draws
+                          op, k, 1, s.keep_alpha))
+    return bg_drawn, draws
 
 
 def composite_fold_plain(height: int, width: int, background: Background,

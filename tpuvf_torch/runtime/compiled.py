@@ -17,10 +17,15 @@ DAG, on buffers that stay put from batch to batch:
   ``HostLayout.upload_into``): a frame from a source's recurring frame pool,
   page-locked once by the pipeline's ``HostRegistry``, is copied straight
   from the source's arrays; any other through one host copy into a fresh
-  pinned buffer and one non-blocking copy.  A source whose rows all hold
-  their buffers already (the step records each row's buffer index,
-  cleared at the start of every loop call, `forget_uploads`) is neither
-  generated nor uploaded again.  On CUDA those copies run on a copy
+  pinned buffer and one non-blocking copy.  A frame copied straight
+  carries only its region: the pixels that its compositor pad's draws
+  read in the batch's staged draw table, for a source that feeds one pad
+  alone (`_regions_of`); the bytes left out keep what the row held, which
+  every draw that reads them multiplies by 0.  A source whose rows all
+  hold their buffers already, each with a region that contains the one it
+  needs (the step records each row's buffer index and region, cleared at
+  the start of every loop call, `forget_uploads`), is neither generated
+  nor uploaded again.  On CUDA those copies run on a copy
   stream of the step's own, ordered by two events: the copy stream waits
   on `_inputs_free`, recorded on the compute stream right after the last
   step that read the fixed inputs (before its readback is enqueued, so an
@@ -168,6 +173,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from tpuvf_torch.core import region
 from tpuvf_torch.core.frame import HostLayout, from_host_layout
 from tpuvf_torch.elements.compositor import DRAW_TABLE
 from tpuvf_torch.kernels import (composite, deinterlace, emit, lut, overlay,
@@ -366,6 +372,12 @@ class _ParamRows:
             stager.put(torch.from_numpy(table), self.tables)
         self._last = (values, table)
 
+    @property
+    def table(self) -> Optional[np.ndarray]:
+        """The draw tables last staged, (n, T) int32 on the host; None
+        without a compositor or before the first `stage`."""
+        return self._last[1]
+
     def params(self, j: int, reads) -> Dict[str, Dict]:
         """Frame j's params: its scalars as 0-dim views of row j, each
         compositor's draw table a view of row j, other values as read."""
@@ -403,6 +415,7 @@ class CompiledStep:
     With `graphs` False (the CPU) every body runs eagerly."""
 
     MAX_GRAPHS = 16  # a batch and a tail key a shard on 4 cards
+    MAX_REGIONS = 256  # memoised regions, forgotten together past it
 
     def __init__(self, pipe):
         self.pipe = pipe
@@ -432,9 +445,13 @@ class CompiledStep:
         self._turn = 0  # the output set of the last batch
         self._eager_out = False  # the last batch's payloads are not a graph's
         self._rows: Dict[int, tuple] = {}  # n -> _input_rows
-        # (n, source name) -> the buffer indices its n rows hold
-        self._uploaded: Dict[tuple, list] = {}
+        # (n, source name) -> (the buffer indices its n rows hold, the
+        # region of each that they hold)
+        self._uploaded: Dict[tuple, tuple] = {}
         self._aggs = pipe._table_layout()  # [(stage, offset, size)]
+        self._feeds = pipe._pad_feeds()  # `_regions_of`
+        # (source name, its table's bytes) -> (region, spans)
+        self._regions: Dict[tuple, tuple] = {}
         self._agg_names = {st.element.name for st, _, _ in self._aggs}
         self._params_at: Dict[tuple, _ParamRows] = {}  # (device, n)
         self._state = _Carry()
@@ -461,44 +478,85 @@ class CompiledStep:
     def upload_rows(self, selections, index=None) -> None:
         """Each frame's picked buffers (``Pipeline._select_buffers``, one a
         frame) -> its row of `batch_inputs(n)`, after the copies the last
-        upload read from a source's memory (`await_copies`).  A source
-        whose rows all hold their buffers already is skipped; of any other
-        every row's buffer is generated (`_host_frames`) and copied by one
-        ``HostLayout.upload_into`` with the pipeline's ``HostRegistry``:
-        on CUDA on the copy stream, after the last step that read the fixed
-        inputs and before the next (module doc).  The frames copied
-        straight from the source's memory and those filled add to the
-        pipeline's `upload_direct` and `upload_filled`; the spans add to
-        its `edge_seconds`, `index`, the batch's first frame, in their
+        upload read from a source's memory (`await_copies`).  Each row
+        needs the region of its frame that the batch's staged draw
+        tables read (`_regions_of`; all of it for most sources).  A source
+        whose rows all hold their buffers already, each with a region
+        that contains the one it needs, is skipped; of any other every
+        row's buffer is generated (`_host_frames`) and copied by one
+        ``HostLayout.upload_into`` with the pipeline's ``HostRegistry``,
+        a frame copied straight from the source's memory copying only its
+        region's spans: on CUDA on the copy stream, after the last step
+        that read the fixed inputs and before the next (module doc).  The
+        frames copied straight from the source's memory and those filled
+        add to the pipeline's `upload_direct` and `upload_filled`, the
+        bytes the regions left out to its `upload_culled`; the spans add
+        to its `edge_seconds`, `index`, the batch's first frame, in their
         args."""
         self.await_copies()
         n = len(selections)
+        tables = (self.param_rows(self.device, n).table if self._feeds
+                  else None)
         for name, flat in self.batch_inputs(n).items():
             want = [sel[name][0] for sel in selections]
-            if self._uploaded.get((n, name)) == want:
+            need = self._regions_of(name, tables, n)
+            held = self._uploaded.get((n, name))
+            if (held is not None and held[0] == want
+                    and all(region.contains(h, r)
+                            for h, (r, _) in zip(held[1], need))):
                 continue
             self._upload(name, _host_frames(self.pipe, name, want, index),
-                         flat, index)
-            self._uploaded[(n, name)] = want
+                         flat, index, [spans for _, spans in need])
+            self._uploaded[(n, name)] = (want, [r for r, _ in need])
+
+    def _regions_of(self, name: str, tables, n: int) -> list:
+        """Source `name`'s region in each of n frames -> [(region, its
+        spans in the source's host layout)], (None, None) for the whole
+        frame: for a source that feeds a compositor pad alone
+        (``Pipeline._pad_feeds``) the pad's region in the frame's draw
+        table (the compositor's ``process.pad_regions``) widened through
+        each stage between by its reach; memoised by the table's
+        bytes."""
+        feed = self._feeds.get(name)
+        if feed is None or tables is None:
+            return [(None, None)] * n
+        (st, offset, size), pad, chain = feed
+        out = []
+        for row in tables:
+            table = row[offset:offset + size]
+            key = (name, table.tobytes())
+            hit = self._regions.get(key)
+            if hit is None:
+                reads = st.process.pad_regions(table)[pad]
+                for reach, width, height, chroma in chain:
+                    reads = region.widen(reads, reach, width, height, chroma)
+                if len(self._regions) >= self.MAX_REGIONS:
+                    self._regions.clear()
+                hit = self._regions[key] = (
+                    reads, self._layouts[name].spans(reads))
+            out.append(hit)
+        return out
 
     def _upload(self, name: str, host_frames, out: torch.Tensor,
-                index) -> None:
-        """Source `name`'s host frames -> the rows `out` (`upload_rows`)."""
+                index, spans) -> None:
+        """Source `name`'s host frames -> the rows `out` (`upload_rows`),
+        a frame that goes straight copying its `spans`."""
         stats = self.pipe.stats
         layout = self._layouts[name]
         if self._copy is None:
-            direct = layout.upload_into(host_frames, out, stats.edge_seconds,
-                                        index)
+            direct, culled = layout.upload_into(
+                host_frames, out, stats.edge_seconds, index, spans=spans)
         else:
             self._copy.wait_event(self._inputs_free)
             with torch.cuda.stream(self._copy):
-                direct = layout.upload_into(host_frames, out,
-                                            stats.edge_seconds, index,
-                                            self.pipe._host_memory)
+                direct, culled = layout.upload_into(
+                    host_frames, out, stats.edge_seconds, index,
+                    self.pipe._host_memory, spans)
             self._inputs_ready.record(self._copy)
             self._reads_source = self._reads_source or direct > 0
         stats.upload_direct += direct
         stats.upload_filled += len(host_frames) - direct
+        stats.upload_culled += culled
 
     def await_copies(self) -> None:
         """Wait until the copies read straight from a source's memory are

@@ -8,9 +8,10 @@
   time (the first-use kernel build included), the ticks a live run dropped
   and, for the port's run loops, the host time of each part of the frame
   edge (``edge_seconds``), the frames uploaded straight from a source's
-  memory or through a host copy (``upload_direct``, ``upload_filled``) and
-  the frames read back on a readback stream of their own
-  (``readback_async``).
+  memory or through a host copy (``upload_direct``, ``upload_filled``),
+  the bytes of them that no draw reads and no copy moved
+  (``upload_culled``) and the frames read back on a readback stream of
+  their own (``readback_async``).
 - ``trace()`` is the one span: it reads the host clock at each end and
   adds the difference to its part of ``edge_seconds``
   (``tpuvf_torch.upload`` -> ``"upload"``).  Only while a torch profiler
@@ -19,8 +20,8 @@
   share the profiler's clock with the card's kernels and copies; with none
   active a span costs two clock reads and a dict add.  Span names carry no
   index.  ``TPUVF_DEBUG=perf:5`` logs each span's milliseconds, and at the
-  end of each run the edge parts' seconds, the upload counts and
-  ``readback_async``.
+  end of each run the edge parts' seconds, the upload counts, the culled
+  bytes and ``readback_async``.
 - ``profiler_trace(path)`` captures the enclosed region with torch.profiler
   (the host, and the CUDA activity on a GPU) as a Chrome trace at `path`.
 - Per-frame failures surface as ``PipelineError`` (the GST_FLOW_ERROR
@@ -120,6 +121,10 @@ class PipelineStats:
     # filled)
     upload_direct: int = 0
     upload_filled: int = 0
+    # bytes of the frames copied straight that their regions left out: the
+    # pixels no draw of their compositor's table reads
+    # (``CompiledStep.upload_rows``)
+    upload_culled: int = 0
     # frames the loops read back on the compiled step's readback stream
     # (CUDA, no mesh), beside the next batch's step
     readback_async: int = 0

@@ -95,6 +95,7 @@ import numpy as np
 import torch
 
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
+from tpuvf_torch.core.formats import RGB_FORMATS
 from tpuvf_torch.core.frame import HostLayout, HostRegistry, from_host_layout
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
 from tpuvf_torch.elements.compositor import DRAW_TABLE
@@ -149,6 +150,27 @@ def _is_aggregator(element) -> bool:
     from tpuvf_torch.elements.compositor import Compositor  # circular-safe
 
     return isinstance(element, Compositor)
+
+
+def _reach(st: Stage) -> Optional[tuple]:
+    """What a one-input stage reads of its input around each output pixel
+    (`Pipeline._pad_feeds`) -> (reach, width, height, chroma): the pixels
+    on each side, the frame's size and whether its input's chroma samples
+    cover two pixels (YUV: 2 pixels more, rounded out to even); None where
+    an output pixel reads beyond a reach of it (a scale, a crop, a flip, a
+    rotation, a host codec) or a frame's pixels reach the next (carried
+    state)."""
+    e, i, o = st.element, st.in_spec, st.out_spec
+    chroma = i.format not in RGB_FORMATS
+    if st.passthrough:
+        return None if _is_codec(e) else (0, i.width, i.height, False)
+    if (i.width, i.height) != (o.width, o.height) or not e.dp_shard_safe(
+            i, o):
+        return None
+    reach = e.band_reach(i, o)
+    if reach is None:
+        return None
+    return reach + 2 * chroma, i.width, i.height, chroma
 
 
 def same_layout(old, new) -> bool:
@@ -358,7 +380,6 @@ class Pipeline:
         passthrough elements and foldable overlays (image loaded, same
         format and size in and out) and stops at anything else, an overlay
         that cannot fold included."""
-        from tpuvf_torch.core.formats import RGB_FORMATS
         from tpuvf_torch.elements.overlay import Overlay
 
         folds: Dict[str, List[Element]] = {}
@@ -645,6 +666,34 @@ class Pipeline:
                 out.append((st, offset, st.process.table_size))
                 offset += st.process.table_size
         return out
+
+    def _pad_feeds(self) -> Dict[str, tuple]:
+        """{source name: ((compositor stage, table offset, size) as
+        `_table_layout` has it, pad, [`_reach` of each stage between, pad
+        side first])} for each source whose frames reach one compositor
+        pad and nothing else, through stages of one input and one output
+        link that each read within a reach of each pixel (`_reach`): such
+        a source's upload needs only the pixels its pad's region reads,
+        widened through those stages (`CompiledStep.upload_rows`)."""
+        aggs = {id(entry[0].element): entry
+                for entry in self._table_layout()}
+        stages = {id(st.element): st for st in self.stages}
+        feeds = {}
+        for src in self.sources:
+            node, chain = src, []
+            while len(self._outgoing(node)) == 1:
+                ln = self._outgoing(node)[0]
+                node = ln.downstream
+                if id(node) in aggs:
+                    feeds[src.name] = (aggs[id(node)], ln.sink_pad,
+                                       chain[::-1])
+                    break
+                st = stages.get(id(node))
+                reach = None if st is None else _reach(st)
+                if reach is None:
+                    break
+                chain.append(reach)
+        return feeds
 
     def _pad_meta(self, metas: Dict) -> Dict[str, Dict]:
         """{aggregator name: {pad: buffer flags}} from {source name:
@@ -1179,12 +1228,12 @@ class Pipeline:
         self.stats.frames += count
         self.stats.wall_seconds += time.perf_counter() - t_run
         _log.info("run complete: %s", self.stats.summary())
-        _perf.debug("edge s: %s; upload direct %d, filled %d; readback "
-                    "async %d",
+        _perf.debug("edge s: %s; upload direct %d, filled %d, culled %d "
+                    "B; readback async %d",
                     ", ".join(f"{k} {v:.6f}" for k, v in
                               self.stats.edge_seconds.items()),
                     self.stats.upload_direct, self.stats.upload_filled,
-                    self.stats.readback_async)
+                    self.stats.upload_culled, self.stats.readback_async)
         for sink in self.sinks:
             sink.finalize()
         return count
