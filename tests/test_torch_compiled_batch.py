@@ -31,6 +31,7 @@ ones, as a graph writes its own buffers.
   compile).
 """
 
+import ctypes
 from contextlib import contextmanager
 
 import numpy as np
@@ -53,8 +54,11 @@ from tests.test_torch_compiled_step import (
 )
 from tests.test_torch_elements import diff_stats
 from tpuvf.cli.launch import parse_pipeline as tpuvf_parse
+from tpuvf_torch.core.formats import VideoFormat
 from tpuvf_torch.core.frame import HostLayout
+from tpuvf_torch.core.spec import FrameSpec
 from tpuvf_torch.parallel.mesh import make_mesh
+from tpuvf_torch.runtime import pipeline as pipeline_module
 from tpuvf_torch.runtime.observability import PipelineError
 
 torch.set_num_threads(1)
@@ -291,10 +295,12 @@ def test_a_row_that_holds_its_buffer_is_not_uploaded_again():
 
 
 class FakeStream:
-    """A stream or an event of the card, each call logged in order."""
+    """A stream or an event of the card, each call logged in order; an
+    event's host waits counted (`synced`)."""
 
     def __init__(self, name, log):
         self.name, self.log = name, log
+        self.synced = 0
 
     def wait_event(self, event):
         self.log.append((self.name, "wait", event.name))
@@ -302,14 +308,28 @@ class FakeStream:
     def record(self, stream):
         self.log.append((stream.name, "record", self.name))
 
+    def synchronize(self):
+        self.synced += 1
 
-def streams_on_cpu(monkeypatch, pipe) -> list:
+
+class StreamLog(list):
+    """What `streams_on_cpu` logs, with the delivery events made
+    (`events`, ``torch.cuda.Event``'s, named done0, done1, ...)."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+
+def streams_on_cpu(monkeypatch, pipe) -> StreamLog:
     """`pipe`'s compiled step with the readback stream and its events of
     the card (module doc of ``runtime/compiled.py``) faked on the CPU,
-    ``torch.cuda``'s current stream with them; -> the log of what each
-    stream is handed, a readback's copies (``HostLayout.readback``) and
-    ``record_stream`` included."""
-    log = []
+    ``torch.cuda``'s current stream and new events with them, and the raw
+    copies of a batch's readback (``core/frame.py`` `copy_d2h`) done by
+    torch on the CPU; -> the log of what each stream is handed, the
+    per-frame readback's copies (``HostLayout.readback``), a raw call's
+    count of pieces and ``record_stream`` included."""
+    log = StreamLog()
     cs = pipe.compiled
     current = [FakeStream("compute", log)]
     cs._readback = FakeStream("readback", log)
@@ -330,12 +350,24 @@ def streams_on_cpu(monkeypatch, pipe) -> list:
         log.append((current[-1].name, "copy"))
         return real(self, pieces, flat)
 
+    def event():
+        log.events.append(FakeStream(f"done{len(log.events)}", log))
+        return log.events[-1]
+
+    def copy_d2h(copies, s):
+        log.append((s.name, "raw", len(copies)))
+        for view, piece in copies:
+            assert piece.is_contiguous() and view.is_contiguous()
+            view.copy_(piece)
+
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: current[-1])
     monkeypatch.setattr(torch.cuda, "stream", stream)
+    monkeypatch.setattr(torch.cuda, "Event", event)
     monkeypatch.setattr(torch.Tensor, "record_stream",
                         lambda t, s: log.append((s.name, "record_stream")))
     monkeypatch.setattr(HostLayout, "readback", readback)
+    monkeypatch.setattr(pipeline_module, "copy_d2h", copy_d2h)
     return log
 
 
@@ -370,7 +402,7 @@ def batches_of(log) -> list:
     return [log[a:b] for a, b in zip(cuts, cuts[1:] + [len(log)])]
 
 
-@pytest.mark.parametrize("frames", [6, 8, 7])  # odd, even, a short tail
+@pytest.mark.parametrize("frames", [6, 8, 7, 11])  # odd, even, a short tail
 def test_two_output_sets_in_turns(frames, monkeypatch):
     """Greedy-H (state through the frames) in batches of 2 over two calls,
     with the card's readback stream and events faked: each batch key's two
@@ -378,9 +410,10 @@ def test_two_output_sets_in_turns(frames, monkeypatch):
     each captured at its first use (a tail's only set, its one turn in
     each call), byte-equal to `run`; per batch the compute
     stream waits on the set's `_outputs_free`, records `_step_done` after
-    the step, and the readback stream waits on it, copies each frame, the
-    eager batch's pieces marked as used there first, and records the set's
-    `_outputs_free`."""
+    the step, and the readback stream waits on it (the eager batch's
+    pieces marked as used there), takes the batch's copies by one raw call
+    and one delivery event (its frames are far below a chunk), which the
+    host waits on once, and records the set's `_outputs_free`."""
     feeds = {"appsrc0": i420(frames, 64, 36, 37)}
     ref = fed(GREEDY, feeds, device="cpu")
     want = run_frames(ref, frames) + run_frames(ref, frames)[frames:]
@@ -391,12 +424,15 @@ def test_two_output_sets_in_turns(frames, monkeypatch):
     cs = pipe.compiled
     keys = 1 + frames % 2  # a tail takes a key of its own
     assert cs.batch_captures == keys
-    assert captured == [2, 4] + [6] * (frames % 2)
+    assert captured == [2, 4] + [frames - 1] * (frames % 2)
     assert sorted(len(e.sets) for e in cs._batches.values()) == (
         [1] * (frames % 2) + [2])
     assert cs.eager == 2  # batch 0: has_prev False on its first frame
     assert pipe.stats.readback_async == 2 * frames
     sizes = ([2] * (frames // 2) + [1] * (frames % 2)) * 2
+    assert pipe.stats.readback_events == len(sizes)
+    assert [e.synced for e in log.events] == [1] * len(sizes)
+    assert sum(e.synced for e in cs._outputs_free) == 0
     batches = batches_of(log)
     assert len(batches) == len(sizes)
     for b, (n, got_log) in enumerate(zip(sizes, batches)):
@@ -406,8 +442,9 @@ def test_two_output_sets_in_turns(frames, monkeypatch):
         assert got_log == ([("compute", "wait", free),
                             ("compute", "record", "step_done"),
                             ("readback", "wait", "step_done")] + marks
-                           + [("readback", "copy")] * n
-                           + [("readback", "record", free)]), b
+                           + [("readback", "raw", 3 * n),
+                              ("readback", "record", f"done{b}"),
+                              ("readback", "record", free)]), b
 
 
 @pytest.mark.parametrize("loop", ["run", "run_live"])
@@ -418,8 +455,8 @@ def test_the_frame_loops_read_back_on_the_readback_stream(loop, monkeypatch):
     key's two output sets taken in turns frame by frame, captured at
     frames 2 and 3,
     byte-equal to the eager `run`; each frame hands the streams the order
-    of `test_two_output_sets_in_turns`, and `readback_async` counts every
-    frame."""
+    of `test_two_output_sets_in_turns` (a raw call of its three pieces and
+    an event), and `readback_async` counts every frame."""
     feeds = {"appsrc0": i420(8, 64, 36, 38)}
     want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
     pipe = fed(GREEDY, feeds, device="cpu")
@@ -435,7 +472,8 @@ def test_the_frame_loops_read_back_on_the_readback_stream(loop, monkeypatch):
     cs = pipe.compiled
     assert captured == [2, 3] and cs.batch_captures == 1
     assert (cs.eager, cs.batch_replays) == (2, 6)
-    assert pipe.stats.readback_async == 8
+    assert pipe.stats.readback_async == pipe.stats.readback_events == 8
+    assert [e.synced for e in log.events] == [1] * 8
     frames = batches_of(log)
     assert len(frames) == 8
     for b, got_log in enumerate(frames):
@@ -444,15 +482,16 @@ def test_the_frame_loops_read_back_on_the_readback_stream(loop, monkeypatch):
         assert got_log == ([("compute", "wait", free),
                             ("compute", "record", "step_done"),
                             ("readback", "wait", "step_done")] + marks
-                           + [("readback", "copy"),
+                           + [("readback", "raw", 3),
+                              ("readback", "record", f"done{b}"),
                               ("readback", "record", free)]), b
 
 
 @pytest.mark.parametrize("loop", ["mesh"])
 def test_other_loops_read_back_on_the_compute_stream(loop, monkeypatch):
     """With the readback stream faked as above, the mesh path hands it
-    nothing: its readbacks stay on the current stream, and
-    `readback_async` stays 0."""
+    nothing: its readbacks stay on the current stream, frame by frame, and
+    `readback_async` and `readback_events` stay 0."""
     feeds = {"appsrc0": i420(8, 64, 36, 38)}
     want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
     pipe = fed(GREEDY, feeds, device="cpu")
@@ -462,7 +501,203 @@ def test_other_loops_read_back_on_the_compute_stream(loop, monkeypatch):
     got = [payload_bytes(f) for f in pipe["appsink0"].frames]
     assert got == want
     assert log == [("compute", "copy")] * 8
-    assert pipe.stats.readback_async == 0
+    assert pipe.stats.readback_async == pipe.stats.readback_events == 0
+
+
+# greedy-H's I420 64x36 frame: the bytes of its three pieces
+FRAME_BYTES = 64 * 36 * 3 // 2
+
+
+@pytest.mark.parametrize("chunk,groups", [
+    (1, [1, 1, 1, 1]),                      # a frame a chunk, as a 4K frame
+    (2 * FRAME_BYTES, [2, 2]),
+    (2 * FRAME_BYTES + 1, [3, 1]),          # the batch's last frame closes
+    (1 << 20, [4]),                         # the whole batch, one event
+])
+def test_a_batch_shares_an_event_a_chunk(chunk, groups, monkeypatch):
+    """Greedy-H over 12 frames in batches of 4 with the streams faked as
+    above and `Pipeline.READBACK_CHUNK` at `chunk` bytes: each batch's
+    copies go by one raw call and one event a chunk, `groups` its frames a
+    chunk, after the marks of the eager batch; the host waits once an
+    event, on the chunk's first frame, and the frames equal `run`'s."""
+    feeds = {"appsrc0": i420(12, 64, 36, 43)}
+    want = run_frames(fed(GREEDY, feeds, device="cpu"), 12)
+    pipe = fed(GREEDY, feeds, device="cpu")
+    pipe.READBACK_CHUNK = chunk
+    two_sets_on_cpu(pipe)
+    log = streams_on_cpu(monkeypatch, pipe)
+    waited = []
+    real = pipeline_module.Pipeline._deliver
+
+    def deliver(self, index, copies, event, retry=None):
+        synced = sum(e.synced for e in log.events)
+        real(self, index, copies, event, retry)
+        waited.append(sum(e.synced for e in log.events) - synced)
+
+    monkeypatch.setattr(pipeline_module.Pipeline, "_deliver", deliver)
+    assert batched(pipe, (12,), 4) == want
+    assert pipe.stats.readback_events == 3 * len(groups)
+    assert [e.synced for e in log.events] == [1] * (3 * len(groups))
+    starts = [sum(groups[:k]) for k in range(len(groups))]
+    assert waited == [int(j in starts) for j in range(4)] * 3
+    for b, got_log in enumerate(batches_of(log)):
+        copies = [e for e in got_log if e[1] in ("raw", "record")
+                  and not str(e[-1]).startswith("free")
+                  and e[0] == "readback"]
+        want_log = []
+        for k, n in enumerate(groups):
+            want_log += [("readback", "raw", 3 * n),
+                         ("readback", "record", f"done{b * len(groups) + k}")]
+        assert copies == want_log, b
+
+
+@pytest.mark.parametrize("width,height", [(32, 18), (128, 72)])
+def test_a_ring_rebuilt_at_a_new_size_makes_its_slots_anew(
+        width, height, monkeypatch):
+    """With the streams faked as above: a sink's ring made anew for a
+    layout of another size drops the old slots, whose views and payloads
+    go with them, and makes the new ones with theirs; the next call makes
+    the ring at the sink's own size again and reads back what `run`
+    does."""
+    feeds = {"appsrc0": i420(8, 64, 36, 39)}
+    ref = fed(GREEDY, feeds, device="cpu")
+    want = run_frames(ref, 8) + run_frames(ref, 8)[8:]
+    pipe = fed(GREEDY, feeds, device="cpu")
+    two_sets_on_cpu(pipe)
+    streams_on_cpu(monkeypatch, pipe)
+    batched(pipe, (8,), 2)
+    sink = pipe["appsink0"]
+    old = [flat for flat, _, _ in pipe._rings[sink.name][1]]
+    assert len(old) == 4 and len(pipe._slots) == 4
+    other = HostLayout(FrameSpec(VideoFormat.I420, width, height))
+    flat = pipe._ring_buffer(sink, other, 0)
+    assert flat.numel() == other.nbytes and all(flat is not f for f in old)
+    _, views, payload = pipe._slots[flat.data_ptr()]
+    assert payload["y"].shape == (height, width)
+    assert [tuple(v.shape) for v in views] == [tuple(s) for s in
+                                               other.shapes]
+    assert not any(f.data_ptr() in pipe._slots for f in old)
+    assert batched(pipe, (8,), 2) == want
+    assert len(pipe._slots) == 4
+    assert pipe.stats.readback_events == 8
+
+
+@pytest.mark.parametrize("pieces", ["contiguous", "strided"])
+def test_a_strided_piece_is_copied_by_torch(pieces, monkeypatch):
+    """With the streams faked as above, a sink whose payload pieces are
+    not contiguous (the same bytes, planes stored column by column) is
+    read back by torch's copies, no piece handed to the raw call, under
+    the same one event a batch, and reads back what `run` does;
+    contiguous pieces all go by the raw call."""
+    feeds = {"appsrc0": i420(8, 64, 36, 41)}
+    want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
+    pipe = fed(GREEDY, feeds, device="cpu")
+    two_sets_on_cpu(pipe)
+    log = streams_on_cpu(monkeypatch, pipe)
+    sink = pipe["appsink0"]
+    real = sink.device_payload
+
+    def device_payload(planes, spec):
+        layout, got = real(planes, spec)
+        return layout, [p.t().contiguous().t() for p in got]
+
+    if pieces == "strided":
+        sink.device_payload = device_payload
+    assert batched(pipe, (8,), 2) == want
+    raw = [e[2] for e in log if e[1] == "raw"]
+    assert raw == [0 if pieces == "strided" else 6] * 4
+    assert pipe.stats.readback_events == 4
+
+
+@pytest.mark.parametrize("sink", ["appsink", "fakesink"])
+def test_each_ring_slot_keeps_its_payload(sink, monkeypatch):
+    """Greedy-H in batches of 2 with the streams faked as above: each of a
+    sink's 4 ring slots keeps torch and numpy views of its host buffer,
+    made with the slot, the numpy ones equal to a fresh
+    ``HostLayout.payload`` of it; a sink that keeps its frames (appsink,
+    ``KEEPS_PAYLOAD``) is handed arrays of its own a frame, equal to
+    `run`'s, any other (fakesink) the slot's payload itself."""
+    feeds = {"appsrc0": i420(8, 64, 36, 40)}
+    want = run_frames(fed(GREEDY, feeds, device="cpu"), 8)
+    pipe = fed(GREEDY.replace("appsink", sink), feeds, device="cpu")
+    two_sets_on_cpu(pipe)
+    streams_on_cpu(monkeypatch, pipe)
+    el = pipe.sinks[0]
+    handed = []
+    real = el.deliver
+
+    def deliver(payload, spec, k):
+        handed.append((payload, payload_bytes(payload)))
+        real(payload, spec, k)
+
+    el.deliver = deliver
+    assert pipe.run_batched(8, batch_size=2) == 8
+    layout, ring = pipe._rings[el.name]
+    assert len(ring) == 4
+    assert len(pipe._slots) == 4
+    for flat, views, payload in ring:
+        assert pipe._slots[flat.data_ptr()][2] is payload
+        fresh = layout.payload(flat)
+        assert payload.keys() == fresh.keys() == {"y", "u", "v"}
+        for k, view in payload.items():
+            assert np.shares_memory(view, flat.numpy())
+            assert np.array_equal(view, fresh[k])
+        for view, (k, arr) in zip(views, payload.items()):
+            assert np.shares_memory(view.numpy(), arr)
+    assert [b for _, b in handed] == want
+    for payload, _ in handed:
+        own = [any(np.shares_memory(v, flat.numpy()) for flat, _, _ in ring)
+               for v in payload.values()]
+        if el.KEEPS_PAYLOAD:
+            assert not any(own)
+        else:
+            assert all(own) and any(payload is p for _, _, p in ring)
+
+
+class _Library:
+    """The kernel library's `copy_d2h` on the CPU: reads back the arrays
+    of pointers and sizes it is handed, and returns `err`."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def copy_d2h(self, dst, src, nbytes, count, stream):
+        read = [np.ctypeslib.as_array(
+            ctypes.cast(p, ctypes.POINTER(ctypes.c_int64)), (count,)).copy()
+            for p in (dst, src, nbytes)]
+        self.calls.append((*[r.tolist() for r in read], count, stream))
+        return self.err
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_copy_d2h_hands_the_library_every_piece(err, monkeypatch):
+    """``core/frame.py`` `copy_d2h`: one call into the library for all the
+    copies it is given, each view's and piece's address and the piece's
+    bytes in order, on the stream's handle; a CUDA error code raises."""
+    from tpuvf_torch.core import frame
+    from tpuvf_torch.kernels import _build
+
+    lib = _Library(err)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    pieces = [torch.zeros(4, 6, dtype=torch.uint8),
+              torch.zeros(2, 3, 4, dtype=torch.uint8),
+              torch.zeros(5, dtype=torch.float32)]
+    views = [torch.empty_like(p) for p in pieces]
+
+    class Stream:
+        cuda_stream = 1234
+
+    copies = list(zip(views, pieces))
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            frame.copy_d2h(copies, Stream())
+    else:
+        frame.copy_d2h(copies, Stream())
+    assert lib.calls == [([v.data_ptr() for v in views],
+                          [p.data_ptr() for p in pieces],
+                          [24, 24, 20], 3, 1234)]
+    frame.copy_d2h([], Stream())
+    assert len(lib.calls) == 1
 
 
 # -- failures ------------------------------------------------------------------

@@ -16,8 +16,20 @@
   program.
 - The scaler's roofline reader: its bytes on the configuration's shapes and
   its share on a made-up trace.
+
+The tests marked ``card`` need a CUDA card and skip without one (run them
+on the card with ``python -m pytest --noconftest -m card
+tests/test_torch_cs480.py``): the batch readback (one raw call and one
+event for each chunk of a batch's copies, ``Pipeline._readback_batch``)
+of `run_batched` over the cells' launches at full size, chain (a) in
+batches of 32 and BASELINE config 5 in batches of 8, from a pool of 12
+frames a source (so that neighbouring batches differ), byte for byte the
+same run read back frame by frame (torch's copies and an event a frame,
+``Pipeline._readback``); with the raw copies pointed at the other output
+set, frames come out wrong.
 """
 
+import hashlib
 import json
 import re
 import sys
@@ -27,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpuvf_torch.runtime import pipeline as pipeline_module
 from vfbench import calibrate, check, faults, harness, inputs, roofline, spec
 from vfbench.reference import Reference
 
@@ -260,3 +273,103 @@ def test_scale_roofline_pct_on_a_synthetic_reduction(monkeypatch):
     assert read(ctx(ops)) is None
     monkeypatch.setattr(sys, "argv", ["pytest"])
     assert read(ctx(ops)) is None
+
+
+# -- the batch readback on the card --------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _digests(workload, batch_size, tmp_path, patch=None, frames=6):
+    """`run_batched` of `frames` batches of the cell's launch on the card,
+    its sources fed from a pool of 12, `patch(pipe)` first where given ->
+    (each frame's digest, the pipeline's stats, a frame's bytes)."""
+    cell = spec.load_cell(spec.HERE.parent, workload)
+    cell.traffic = dict(cell.traffic, pool=12)
+    pipe, pool = harness.build(cell, SEEDS[0], torch.device("cuda"),
+                               str(tmp_path))
+    n = frames * batch_size
+    harness.feed(pipe, pool, n)
+    out = pipe["out"]
+    digests = []
+
+    def deliver(payload, spec_, k):
+        digests.append(hashlib.blake2b(np.ascontiguousarray(payload),
+                                       digest_size=16).digest())
+
+    out.deliver = deliver
+    if patch is not None:
+        patch(pipe)
+    assert pipe.run_batched(n, batch_size=batch_size) == n
+    return digests, pipe.stats, pipe._rings[out.name][0].nbytes
+
+
+def _frame_by_frame(monkeypatch):
+    """-> a patch: every batch read back frame by frame (``Pipeline.
+    _readback``: torch's copies, an event a frame)."""
+
+    def patch(pipe):
+        def readback_batch(outs, first, base, retries, stream):
+            return [pipe._readback(payloads, first + j, base + j, retries[j])
+                    for j, payloads in enumerate(outs)]
+
+        monkeypatch.setattr(pipe, "_readback_batch", readback_batch)
+
+    return patch
+
+
+def _other_set(monkeypatch):
+    """-> a patch: each raw copy of a replayed batch's piece reads the
+    same piece of the key's other output set, where it has been
+    captured."""
+
+    def patch(pipe):
+        real = pipeline_module.copy_d2h
+
+        def copy_d2h(copies, stream):
+            swap = {}
+            for entry in pipe.compiled._batches.values():
+                if len(entry.sets) == 2:
+                    a, b = ([p for payloads in entry.sets[t][1][0]
+                             for _, _, pieces in payloads for p in pieces]
+                            for t in (0, 1))
+                    for x, y in zip(a, b):
+                        swap[x.data_ptr()], swap[y.data_ptr()] = y, x
+            real([(v, swap.get(p.data_ptr(), p)) for v, p in copies], stream)
+
+        monkeypatch.setattr(pipeline_module, "copy_d2h", copy_d2h)
+
+    return patch
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("readback", ["as built", "the other output set"])
+@pytest.mark.parametrize("workload,batch_size",
+                         [("cs480-batch32", 32), ("comp4k-batch", 8)])
+def test_the_batch_readback_equals_frame_by_frame_on_the_card(
+        card, monkeypatch, tmp_path, workload, batch_size, readback):
+    """The first batch runs eagerly, every later one replays its key's
+    graph; each is read back by raw calls and an event a chunk
+    (`Pipeline.READBACK_CHUNK`: 7 frames of 1.2 MB, or each 33 MB frame
+    alone), equal to frame by frame.  With the raw copies pointed at the
+    other output set's pieces (the batch before's, or the next one's),
+    frames differ."""
+    want, ref_stats, _ = _digests(workload, batch_size, tmp_path,
+                                  _frame_by_frame(monkeypatch))
+    got, stats, size = _digests(workload, batch_size, tmp_path,
+                                None if readback == "as built"
+                                else _other_set(monkeypatch))
+    assert ref_stats.readback_events == 0
+    per = -(-pipeline_module.Pipeline.READBACK_CHUNK // size)
+    assert stats.readback_events == 6 * -(-batch_size // per)
+    assert len(set(want[:12])) == 12  # every pool frame differs
+    assert len(got) == len(want) == 6 * batch_size
+    wrong = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if readback == "as built":
+        assert not wrong, f"{len(wrong)} of {len(got)} frames wrong: {wrong}"
+    else:
+        assert wrong

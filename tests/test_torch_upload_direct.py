@@ -484,9 +484,9 @@ def hold(monkeypatch, what: str) -> None:
 
         @contextmanager
         def held_reading(self, outs):
-            with real_reading(self, outs):
+            with real_reading(self, outs) as stream:
                 torch.cuda._sleep(HOLD_CYCLES)  # on the readback stream
-                yield
+                yield stream
 
         monkeypatch.setattr(CompiledStep, "reading_back", held_reading)
 

@@ -166,6 +166,30 @@ def _copy_rows_h2d(dst: torch.Tensor, src: torch.Tensor) -> None:
                            f"{rows} rows of {width} bytes")
 
 
+def copy_d2h(copies, stream) -> None:
+    """[(host view, device piece)], each piece contiguous and of its view's
+    shape, each view contiguous in page-locked host memory -> the copies
+    enqueued on `stream` (a ``torch.cuda.Stream``) by one call into
+    ``csrc/copy.cu``, a ``cudaMemcpyAsync`` a piece.  Unlike torch's
+    copy_, it records no event for torch's host allocator: the caller keeps
+    the views' memory until the copies are done (``Pipeline._ring_buffer``
+    keeps it as long as its ring)."""
+    from tpuvf_torch.kernels import _build
+
+    if not copies:
+        return
+    ptrs = np.empty((3, len(copies)), np.int64)
+    for i, (view, piece) in enumerate(copies):
+        ptrs[:, i] = (view.data_ptr(), piece.data_ptr(),
+                      piece.numel() * piece.element_size())
+    err = _build.load().copy_d2h(ptrs[0].ctypes.data, ptrs[1].ctypes.data,
+                                 ptrs[2].ctypes.data, len(copies),
+                                 stream.cuda_stream)
+    if err:
+        raise RuntimeError(f"CUDA error {err} from the readback of "
+                           f"{len(copies)} pieces")
+
+
 def host_layout(planes: Dict[str, torch.Tensor], spec: FrameSpec) -> List[torch.Tensor]:
     """Canonical uint8 planes -> the host layout's arrays (`host_pieces`'
     order and shapes), computed on the planes' device; `planes_to_host`
@@ -472,7 +496,11 @@ class HostLayout:
         """Enqueue the copy of `pieces` (on any device, shapes as this
         layout's) into the host buffer `flat` (`buffer`'s size, pinned for
         pieces on a GPU); -> `flat`.  On a GPU the copies are non-blocking:
-        read the buffer after the stream's event."""
+        read the buffer after the stream's event.  One call is one frame's
+        copies, torch's copy_ a piece: the mesh's loop calls it per frame
+        (``Pipeline._readback``); the other loops copy a batch's pieces by
+        `copy_d2h`, a call a chunk of frames
+        (``Pipeline._readback_batch``)."""
         if flat.numel() != self.nbytes:
             raise ValueError(f"readback: buffer of {flat.numel()} bytes, "
                              f"layout {self.nbytes}")

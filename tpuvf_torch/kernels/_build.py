@@ -30,7 +30,10 @@ The kernels in the library, each with its wrapper:
   4:2:0 out;
 - ``copy_rows_h2d`` (``copy.cu``, called by ``core/frame.py``'s
   `HostLayout.upload_into`): no kernel, one strided copy of host rows to
-  the card (``cudaMemcpy2DAsync``).
+  the card (``cudaMemcpy2DAsync``);
+- ``copy_d2h`` (``copy.cu``, called by ``core/frame.py``'s `copy_d2h`
+  for a batch's readback): no kernel, a list of copies of device bytes to
+  page-locked host memory (a ``cudaMemcpyAsync`` each).
 
 `SIGNATURES` gives each exported function's ctypes argument types; a source
 that exports a function must list it there.
@@ -105,6 +108,8 @@ SIGNATURES = {
                                                                 _P],
     # dst, dpitch, src, spitch, width (bytes), rows, stream
     "copy_rows_h2d": [_P, _I, _P, _I, _I, _I, _P],
+    # dst[], src[], bytes[] (int64), count, stream
+    "copy_d2h": [_P, _P, _P, _I, _P],
 }
 
 _lib = None

@@ -64,8 +64,9 @@ stream right after the batch's step (where `_inputs_free` is), before it
 copies the batch's payloads;
 `_outputs_free` of the set is recorded on the readback stream after the
 copies, and the compute stream waits on it before the set's next replay,
-two batches later; each frame's event (``Pipeline._readback``) is recorded
-on the readback stream.  The replays, and so the write-back of the state,
+two batches later; the frames' delivery events (``Pipeline._readback_batch``,
+one for each chunk of a batch's copies) are recorded on the readback
+stream.  The replays, and so the write-back of the state,
 stay in order on the compute stream.  An eager batch's payloads come from
 the caching allocator on the compute stream, so each piece is marked as
 used on the readback stream (``record_stream``) before its copy.  The
@@ -708,9 +709,12 @@ class CompiledStep:
         pieces of an eager batch marked as used there, and the output set's
         `_outputs_free` recorded after the copies (module doc); the frames
         add to ``PipelineStats.readback_async``.  Elsewhere on the current
-        stream."""
+        stream.  Once a batch: the wait, the marks (a piece each) and the
+        record; the copies and their events are the caller's
+        (``Pipeline._readback_batch``).  -> (as the context) the readback
+        stream, or None."""
         if self._readback is None:
-            yield
+            yield None
             return
         stream = self._readback
         stream.wait_event(self._step_done)
@@ -720,7 +724,7 @@ class CompiledStep:
                     for piece in pieces:
                         piece.record_stream(stream)
         with torch.cuda.stream(stream):
-            yield
+            yield stream
         self._outputs_free[self._turn].record(stream)
         self.pipe.stats.readback_async += len(outs)
 

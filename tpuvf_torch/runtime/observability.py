@@ -10,8 +10,9 @@
   edge (``edge_seconds``), the frames uploaded straight from a source's
   memory or through a host copy (``upload_direct``, ``upload_filled``),
   the bytes of them that no draw reads and no copy moved
-  (``upload_culled``) and the frames read back on a readback stream of
-  their own (``readback_async``).
+  (``upload_culled``), the frames read back on a readback stream of
+  their own (``readback_async``) and the events recorded there for their
+  delivery (``readback_events``, one a chunk of a batch's copies).
 - ``trace()`` is the one span: it reads the host clock at each end and
   adds the difference to its part of ``edge_seconds``
   (``tpuvf_torch.upload`` -> ``"upload"``).  Only while a torch profiler
@@ -21,7 +22,7 @@
   active a span costs two clock reads and a dict add.  Span names carry no
   index.  ``TPUVF_DEBUG=perf:5`` logs each span's milliseconds, and at the
   end of each run the edge parts' seconds, the upload counts, the culled
-  bytes and ``readback_async``.
+  bytes, ``readback_async`` and ``readback_events``.
 - ``profiler_trace(path)`` captures the enclosed region with torch.profiler
   (the host, and the CUDA activity on a GPU) as a Chrome trace at `path`.
 - Per-frame failures surface as ``PipelineError`` (the GST_FLOW_ERROR
@@ -128,6 +129,9 @@ class PipelineStats:
     # frames the loops read back on the compiled step's readback stream
     # (CUDA, no mesh), beside the next batch's step
     readback_async: int = 0
+    # the events recorded after those frames' copies, each waited on once
+    # (``Pipeline._readback_batch``: one a chunk of a batch's copies)
+    readback_events: int = 0
     # host seconds of each part of the run loops' frame edge (EDGE_PARTS),
     # each the summed durations of its span (`trace`): params (controllers
     # synced, buffers selected, params read and staged) with its parts
@@ -140,8 +144,9 @@ class PipelineStats:
     # it) and upload.copy (the non-blocking copies' enqueue, straight from
     # a source's registered memory or from the pinned buffer), enqueue (the
     # step's replay or eager run), readback (the copies to the host and the
-    # event, enqueued), wait (on a frame's event), consume (codecs and the
-    # sinks); step = params + enqueue
+    # events, enqueued: a call and an event a chunk of a batch's frames),
+    # wait (on a readback's event, once a chunk), consume (codecs and the
+    # sinks, a frame each); step = params + enqueue
     edge_seconds: Dict[str, float] = field(
         default_factory=lambda: dict.fromkeys(EDGE_PARTS, 0.0))
 

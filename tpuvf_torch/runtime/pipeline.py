@@ -31,11 +31,12 @@
   i's step, each sink's ``device_payload`` (the host-layout permutation,
   ``core.frame.host_layout``; a vfvideosink's render) and the non-blocking
   copies into the sink's readback buffer (two a sink, pinned on a GPU,
-  taken in turns) are enqueued before the run waits on frame i-1's event
-  and hands frame i-1 to its sinks (a sink that keeps its frames,
-  ``KEEPS_PAYLOAD``, gets a copy), through each sink's host codec chain
-  (pngenc, jpegenc, y4menc, which run on the host between their branch's
-  tail and its sink).
+  taken in turns, each kept with its numpy views) are enqueued before the
+  run waits on frame i-1's event and hands frame i-1 to its sinks (a sink
+  that keeps its frames, ``KEEPS_PAYLOAD``, gets a copy), through each
+  sink's host codec chain (pngenc, jpegenc, y4menc, which run on the host
+  between their branch's tail and its sink).  In a batch the frames share
+  their events, one for each chunk of `Pipeline.READBACK_CHUNK` bytes.
 - **Tee**: a tee's branches read the same device planes; with more than one
   sink the step returns ``{sink name: planes}`` and every sink gets its own
   host payload.
@@ -96,7 +97,8 @@ import torch
 
 from tpuvf_torch.core.element import Element, SinkElement, SourceElement
 from tpuvf_torch.core.formats import RGB_FORMATS
-from tpuvf_torch.core.frame import HostLayout, HostRegistry, from_host_layout
+from tpuvf_torch.core.frame import (HostLayout, HostRegistry, copy_d2h,
+                                   from_host_layout)
 from tpuvf_torch.core.spec import CapsFilter, FrameSpec
 from tpuvf_torch.elements.compositor import DRAW_TABLE
 from tpuvf_torch.parallel import bands as pbands
@@ -191,6 +193,11 @@ def same_layout(old, new) -> bool:
 
 
 class Pipeline:
+    # the bytes of a batch's readback that share one event and one wait
+    # (`_readback_batch`): about 180 us of the link at 45 GB/s, where an
+    # event costs the host a few us
+    READBACK_CHUNK = 8 << 20
+
     def __init__(self, device="cuda"):
         self.device = get_device(device)
         self.elements: List[Element] = []
@@ -201,7 +208,12 @@ class Pipeline:
         self._negotiated = False
         self._built_signature = None
         self._codec_chain: Dict[str, List[Element]] = {}
-        self._rings: Dict[str, List[torch.Tensor]] = {}
+        # sink name -> (the layout its slots were made for, [(host buffer,
+        # its views, its payload)]), and each slot by its buffer's address
+        # (`_ring_buffer`)
+        self._rings: Dict[str, tuple] = {}
+        self._slots: Dict[int, tuple] = {}
+        self._waited = None  # the event `_deliver` last waited on
         self._stager = ParamStager(self.device)
         self.navigation_events: List[Dict] = []
         self.stats = PipelineStats()
@@ -977,6 +989,7 @@ class Pipeline:
         self.state = None
         self._codec_chain = {}
         self._rings = {}
+        self._slots = {}
         self._stager = ParamStager(self.device)
         self._compiled_step = None
         self._reset_mesh()
@@ -1081,13 +1094,15 @@ class Pipeline:
         readback);
         the batch's n steps as one (`CompiledStep.step_batch`: on the card
         one replay of the batch key's CUDA graph, once each frame key has
-        run eagerly) and each frame's readback into buffers of the batch's
-        own (two sets of `batch_size` slots a sink, taken in turns per
-        batch), one event a frame, on the card on the step's readback
-        stream (`CompiledStep.reading_back`) beside the next batch's
-        replay.  Only then are the frames of the batch before handed to
-        the sinks.  The carried state runs through the frames in order,
-        across batches and calls.  A failure, the controllers' sync and a
+        run eagerly) and the batch's readback into buffers of its own (two
+        sets of `batch_size` slots a sink, taken in turns per batch), on
+        the card on the step's readback stream
+        (`CompiledStep.reading_back`) beside the next batch's replay, one
+        call and one event for each chunk of its frames
+        (`_readback_batch`).  Only then are the frames of the batch before
+        handed to the sinks, one wait a chunk (`_deliver_all`).  The
+        carried state runs through the frames in order, across batches and
+        calls.  A failure, the controllers' sync and a
         rebuild included, first delivers the pending frames (best effort;
         the original error wins); a step's raises PipelineError at the
         batch's first frame (a replay's fault located by that frame's
@@ -1114,10 +1129,10 @@ class Pipeline:
                 # slots in turns by batches run, not by index: a live run
                 # skips indices
                 with trace("tpuvf_torch.readback", edge, first), \
-                        compiled.reading_back(outs):
-                    readbacks = [self._readback(
-                        outs[j], first + j, (batch % 2) * batch_size + j,
-                        retries[j]) for j in range(n)]
+                        compiled.reading_back(outs) as stream:
+                    readbacks = self._readback_batch(
+                        outs, first, (batch % 2) * batch_size, retries,
+                        stream)
             except Exception:
                 self._flush_pending(pending)
                 raise
@@ -1211,29 +1226,40 @@ class Pipeline:
     def _hand_over(self, pending, readbacks) -> list:
         """The loops' common end of a batch (a frame in `run`), once its
         readbacks are enqueued: hand the frames enqueued one batch earlier
-        to their sinks (`_deliver`, whose spans ``tpuvf_torch.wait`` and
-        ``tpuvf_torch.consume`` add to `stats.edge_seconds` as the loops'
-        spans before it do).  -> `readbacks`, the new pending frames."""
-        for rb in pending:
-            self._deliver(*rb)
+        to their sinks (`_deliver_all`, whose spans ``tpuvf_torch.wait``
+        and ``tpuvf_torch.consume`` add to `stats.edge_seconds` as the
+        loops' spans before it do).  -> `readbacks`, the new pending
+        frames."""
+        self._deliver_all(pending)
         return readbacks
+
+    def _deliver_all(self, pending) -> None:
+        """`_deliver` each of the `pending` frames in order, waiting once on
+        an event that several frames share (a chunk of a batch,
+        `_readback_batch`)."""
+        self._waited = None
+        try:
+            for rb in pending:
+                self._deliver(*rb)
+        finally:
+            self._waited = None
 
     def _end_run(self, count: int, t_run: float, pending) -> int:
         """Deliver the last pending frames, wait for the device, count the
         run and finalize every sink."""
-        for rb in pending:
-            self._deliver(*rb)
+        self._deliver_all(pending)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats.frames += count
         self.stats.wall_seconds += time.perf_counter() - t_run
         _log.info("run complete: %s", self.stats.summary())
         _perf.debug("edge s: %s; upload direct %d, filled %d, culled %d "
-                    "B; readback async %d",
+                    "B; readback async %d, events %d",
                     ", ".join(f"{k} {v:.6f}" for k, v in
                               self.stats.edge_seconds.items()),
                     self.stats.upload_direct, self.stats.upload_filled,
-                    self.stats.upload_culled, self.stats.readback_async)
+                    self.stats.upload_culled, self.stats.readback_async,
+                    self.stats.readback_events)
         for sink in self.sinks:
             sink.finalize()
         return count
@@ -1599,18 +1625,31 @@ class Pipeline:
         return self._end_run(done, t_run, pending)
 
     def _ring_buffer(self, sink, layout: HostLayout, slot: int):
-        """Sink `sink`'s readback buffer `slot` (pinned on a GPU).  The
-        loops take two sets of batch_size slots (1 for `run`), one set a
-        batch in turns, so a batch's copies never land in the batch before
-        it, which is being delivered, and a batch two later reuses a set
-        after it was delivered."""
-        ring = self._rings.get(sink.name)
-        if ring is None or ring[0].numel() != layout.nbytes:
-            ring = self._rings[sink.name] = []
+        """Sink `sink`'s readback buffer `slot` (pinned on a GPU), looked up
+        per frame and sink, made once with its torch views (a piece each)
+        and its payload (the numpy views that ``HostLayout.payload``
+        makes), which `_readback_batch` copies into and `_deliver` hands
+        on (`_slots`).  The loops take two sets of batch_size slots (1 for
+        `run`), one set a batch in turns, so a batch's copies never land in
+        the batch before it, which is being delivered, and a batch two
+        later reuses a set after it was delivered.  A layout of other
+        pieces or shapes (a rebuild, a vfvideosink's new window) makes the
+        ring anew."""
+        held = self._rings.get(sink.name)
+        if held is None or not (
+                held[0] is layout or (held[0].keys == layout.keys
+                                      and held[0].shapes == layout.shapes)):
+            if held is not None:
+                for flat, _, _ in held[1]:
+                    del self._slots[flat.data_ptr()]
+            held = self._rings[sink.name] = (layout, [])
+        ring = held[1]
         pinned = self.device.type == "cuda"
         while len(ring) <= slot:
-            ring.append(layout.buffer(pinned))
-        return ring[slot]
+            flat = layout.buffer(pinned)
+            ring.append((flat, layout._views(flat), layout.payload(flat)))
+            self._slots[flat.data_ptr()] = ring[-1]
+        return ring[slot][0]
 
     def _payloads(self, out, index: int) -> list:
         """Frame `index`'s step output -> [(sink, layout, device pieces)]:
@@ -1628,12 +1667,63 @@ class Pipeline:
             payloads.append((sink, layout, pieces))
         return payloads
 
+    def _readback_batch(self, outs, first: int, base: int, retries,
+                        stream) -> list:
+        """A batch's readback, `outs` its frames' `_payloads` (the first
+        frame `first`), into the ring slots from `base` on, inside the
+        loop's span ``tpuvf_torch.readback`` and
+        `CompiledStep.reading_back`, whose readback stream is `stream`
+        (None on the CPU) -> its frames' readbacks for `_deliver`, frame
+        j's re-run `retries[j]`.  Per frame and sink the ring slot's kept
+        views; on the card per chunk of frames whose copies move
+        `READBACK_CHUNK` bytes, and for the batch's last frames, one call
+        that enqueues every contiguous piece's copy (``core/frame.py``
+        `copy_d2h`; any other piece by torch's copy_ as it comes) and one
+        event, which the chunk's frames share: one wait a chunk, so a
+        frame of that size or more (a 4K frame, 33 MB) is waited on alone
+        and handed on while the batch's later frames are still copied, and
+        small ones (a 640x480 frame, 1.2 MB) wait once for a few.  Without
+        a readback stream (the CPU) the copies are done when it
+        returns."""
+        out, raw, size, held = [], [], 0, 0
+        for j, payloads in enumerate(outs):
+            copies = []
+            for sink, layout, pieces in payloads:
+                try:
+                    flat = self._ring_buffer(sink, layout, base + j)
+                    views = self._slots[flat.data_ptr()][1]
+                    for view, piece in zip(views, pieces):
+                        if piece.shape != view.shape:
+                            raise ValueError(
+                                f"readback: piece {tuple(piece.shape)}, "
+                                f"layout {tuple(view.shape)}")
+                        if stream is not None and piece.is_contiguous():
+                            raw.append((view, piece))
+                        else:  # without an event, done when it returns
+                            view.copy_(piece,
+                                       non_blocking=stream is not None)
+                except Exception as exc:
+                    raise PipelineError(sink.name, first + j, exc) from exc
+                copies.append((sink, layout, flat))
+                size += layout.nbytes
+            out.append([first + j, copies, None, retries[j]])
+            if stream is not None and (size >= self.READBACK_CHUNK
+                                       or j == len(outs) - 1):
+                copy_d2h(raw, stream)
+                event = torch.cuda.Event()
+                event.record(stream)
+                self.stats.readback_events += 1
+                for rb in out[held:]:
+                    rb[2] = event
+                raw, size, held = [], 0, len(out)
+        return [tuple(rb) for rb in out]
+
     def _readback(self, payloads, index: int, slot: int, retry=None):
         """`_payloads` -> (index, [(sink, layout, host buffer)], event,
         retry): the non-blocking copies into each sink's readback buffer
         `slot`, then one event recorded after them (None on the CPU);
-        `retry` re-runs the frame eagerly should its wait fail.  The loops
-        call it inside their span ``tpuvf_torch.readback``."""
+        `retry` re-runs the frame eagerly should its wait fail.  The mesh
+        calls it per frame inside its span ``tpuvf_torch.readback``."""
         copies = []
         for sink, layout, pieces in payloads:
             try:
@@ -1648,28 +1738,39 @@ class Pipeline:
         return index, copies, event, retry
 
     def _deliver(self, index: int, copies, event, retry=None) -> None:
-        """Wait on frame `index`'s event, then run each sink's host codec
-        chain and `deliver` its payload (tpuvf's ``_consume_all``,
-        ``tpuvf/runtime/pipeline.py:1893-1914``), naming the sink whose
-        consume or codec failed.  A device fault that surfaces at the wait
-        is located by the frame's eager re-run (`_locate_failure`), or
-        names "<pipeline>".  Spans ``tpuvf_torch.wait`` (the event, empty
-        on the CPU) and ``tpuvf_torch.consume``."""
+        """Wait on frame `index`'s event, unless `_deliver_all` waited on it
+        last (frames of one chunk share it: one wait a chunk), then run
+        each sink's host codec chain and `deliver` its payload (tpuvf's
+        ``_consume_all``, ``tpuvf/runtime/pipeline.py:1893-1914``), naming
+        the sink whose consume or codec failed.  A ring slot's payload is
+        the one made with it (`_ring_buffer`), views of a buffer that a
+        batch two later reuses; a sink that keeps its frames
+        (``KEEPS_PAYLOAD``, no codec) gets arrays of its own.  A device
+        fault that surfaces at the wait is located by the frame's eager
+        re-run (`_locate_failure`), or names "<pipeline>".  Spans
+        ``tpuvf_torch.wait`` (the event, once a chunk; empty on the CPU)
+        and ``tpuvf_torch.consume`` (a frame each)."""
         edge = self.stats.edge_seconds
-        with trace("tpuvf_torch.wait", edge, index):
-            if event is not None:
-                try:
-                    event.synchronize()
-                except Exception as exc:
-                    raise self._locate_failure(index, exc, retry) from exc
+        if event is None or event is not self._waited:
+            with trace("tpuvf_torch.wait", edge, index):
+                if event is not None:
+                    try:
+                        event.synchronize()
+                    except Exception as exc:
+                        raise self._locate_failure(index, exc,
+                                                   retry) from exc
+                self._waited = event
         with trace("tpuvf_torch.consume", edge, index):
             for sink, layout, flat in copies:
                 try:
                     codecs = self._codec_chain.get(sink.name, ())
-                    # the buffer is reused: a sink that keeps its frames
-                    # gets arrays of its own (a codec makes new bytes)
-                    payload = layout.payload(
-                        flat, copy=sink.KEEPS_PAYLOAD and not codecs)
+                    if sink.KEEPS_PAYLOAD and not codecs:
+                        payload = layout.payload(flat, copy=True)
+                    else:
+                        held = self._slots.get(flat.data_ptr())
+                        payload = (held[2] if held is not None
+                                   and held[0] is flat
+                                   else layout.payload(flat))
                     spec = layout.spec
                     for codec in codecs:
                         payload = codec.encode(payload, spec)
@@ -1682,9 +1783,15 @@ class Pipeline:
         or the previous batch) before a failure propagates: their steps
         already succeeded, so a filesink should not end short of the last
         good output.  Errors here are swallowed: the original failure
-        wins."""
+        wins.  On the card it then waits for the readback stream: a frame
+        left undelivered leaves its raw copies (`_readback_batch`) running
+        into a ring slot that a rebuilt ring would free."""
         try:
-            for rb in pending:
-                self._deliver(*rb)
+            self._deliver_all(pending)
         except Exception:  # noqa: BLE001 - the original failure wins
             pass
+        if self.device.type == "cuda":
+            try:
+                torch.cuda.synchronize(self.device)
+            except Exception:  # noqa: BLE001 - the original failure wins
+                pass
